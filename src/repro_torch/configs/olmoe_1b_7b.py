@@ -1,0 +1,9 @@
+"""olmoe-1b-7b [moe] — 64 experts top-8 [arXiv:2409.02060; hf]."""
+from repro_torch.models.config import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="olmoe-1b-7b", family="moe",
+    n_layers=16, d_model=2048, n_heads=16, n_kv=16, d_ff=1024, vocab=50304,
+    moe=MoEConfig(n_experts=64, top_k=8, d_expert=1024),
+    fsdp=True, remat="full", train_microbatches=4,
+)

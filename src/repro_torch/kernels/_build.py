@@ -1,0 +1,116 @@
+"""Build the hand-written CUDA kernels in `csrc/` and load them with ctypes.
+
+Each `csrc/<name>.cu` has a plain C entry point and includes no PyTorch
+header, so `nvcc` turns it into a shared library in seconds:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<hash>.so
+
+The library lands in `build/kernels/` at the root of the checkout, named by a
+hash of its sources and flags, so a changed source builds anew on first use
+and an unchanged one is loaded as it is.  Nothing is built at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Callable, Dict, Iterable, Sequence, Tuple
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_FNS: Dict[Tuple[str, str], Callable[..., int]] = {}
+
+
+def nvcc() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, else the one on PATH, else
+    the toolkit's default install location."""
+    home = os.environ.get("CUDA_HOME")
+    for cand in ((str(Path(home) / "bin" / "nvcc")) if home else None,
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and Path(cand).is_file():
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path(name: str) -> Path:
+    """Where the library for csrc/<name>.cu lives, keyed by source hash."""
+    h = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, str]:
+    """Compile every named kernel that has no library yet, one nvcc process
+    per source, all started together.  Returns the compiler output (ptxas
+    registers, shared memory, spills) of each source built now.  Raises if
+    any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in jobs.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(name)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def load(name: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
+    """The C entry point `symbol` of csrc/<name>.cu, building the library
+    if needed.  Every entry point returns a cudaError_t as int."""
+    fn = _FNS.get((name, symbol))
+    if fn is None:
+        build([name])
+        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FNS[(name, symbol)] = fn
+    return fn
+
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DtypeCode
+
+
+def check_inputs(kernel: str, *tensors: torch.Tensor) -> int:
+    """Validate tensors for a kernel launch: one CUDA device, one dtype the
+    kernels take, contiguous, 16-byte aligned.  Returns the dtype code."""
+    t0 = tensors[0]
+    code = DTYPE_CODES.get(t0.dtype)
+    if code is None:
+        raise TypeError(f"{kernel}: dtype {t0.dtype} not supported "
+                        f"(float32, bfloat16)")
+    for t in tensors:
+        if t.device != t0.device or t.dtype != t0.dtype:
+            raise ValueError(f"{kernel}: all inputs must share device and "
+                             f"dtype ({t.device}/{t.dtype} vs "
+                             f"{t0.device}/{t0.dtype})")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: inputs must be contiguous and "
+                             f"16-byte aligned")
+    return code

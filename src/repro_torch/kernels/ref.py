@@ -1,0 +1,43 @@
+"""Plain-torch oracles for the attention kernels (small shapes; tests).
+
+`naive_attention` is the counterpart of `repro.kernels.ref.naive_attention`:
+it materializes the full score matrix in float32.  `naive_ssd` and
+`naive_mlstm` come with the recurrent-family slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: Optional[float] = None,
+                    kv_valid_len=None) -> torch.Tensor:
+    """Softmax attention, materializing full scores.
+
+    q: (B, Sq, H, D); k: (B, Skv, K, D); v: (B, Skv, K, Dv), H % K == 0.
+    With kv_valid_len: mask positions t >= valid_len (decode against a
+    cache); query i sits at position valid_len - Sq + i.  Otherwise, with
+    causal, query i sits at i + Skv - Sq (end-aligned).
+    Returns (B, Sq, H, Dv) in q's dtype.
+    """
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Sq, K, G, D).float()
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    ti = torch.arange(Skv, device=q.device)
+    qi = torch.arange(Sq, device=q.device)
+    mask = None
+    if kv_valid_len is not None:
+        mask = ti[None, :] <= (kv_valid_len - Sq + qi)[:, None]
+    elif causal:
+        mask = ti[None, :] <= (qi + (Skv - Sq))[:, None]
+    if mask is not None:
+        s = s.masked_fill(~mask, float("-inf"))
+    a = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgst,btkd->bskgd", a, v.float())
+    return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
