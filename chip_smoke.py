@@ -7,26 +7,41 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. device  -- the card's name and power limit (nvidia-smi) and torch's
                 device name; no CUDA device is an error.
-  2. build   -- both hand-written kernels from src/repro_torch/kernels/csrc
-                with nvcc, printing ptxas' registers / shared memory / spills.
+  2. build   -- every hand-written kernel from src/repro_torch/kernels/csrc
+                with nvcc, one process per source, printing ptxas' registers
+                / shared memory / spills.
   3. kernels -- each kernel against its plain torch version on the same
-                inputs, in bf16 and f32, at the serving path's shapes
-                (llama3-8b: H=32, K=8, D=128) and at ragged / MQA shapes.
-                Tolerance: 1e-4 in f32 and 2e-2 in bf16 against the plain
-                version computed in f32.  Each case prints the kernel's, the
-                plain version's and F.scaled_dot_product_attention's time
-                (CUDA events, L2 flushed before each launch) beside the
-                least time the card could take (bound_ms).
-  4. parity  -- reduced llama3-8b in f32 (TF32 off), the same seeded params
-                served on the card (kernels) and on the CPU (plain versions):
-                prefill logits within 1e-4, greedy tokens equal.
+                inputs, in bf16 and f32: the attention kernels at the serving
+                shapes (llama3-8b: H=32, K=8, D=128), at zamba2-1.2b's shared
+                block (H=K=32, D=64) and at ragged / MQA / GQA shapes; the SSD
+                scan and its backward at zamba2-1.2b's widths, the reduced
+                config's and a test sweep's.  Tolerance: 1e-4 in f32 and 2e-2
+                in bf16 against the plain version computed in f32 (the
+                attention forward absolute, the SSD scan and the backward
+                kernels relative to the largest reference magnitude).  Each
+                case prints the kernel's and the plain version's time, and
+                the library call's where one exists (CUDA events, L2 flushed
+                before each launch), beside the least time the card could
+                take (bound_ms).  A backward case times the backward alone:
+                the plain version's and SDPA's backward are autograd over a
+                retained graph.
+  4. serve parity -- reduced llama3-8b in f32 (TF32 off), the same seeded
+                params served on the card (kernels) and on the CPU (plain
+                versions): prefill logits within 1e-4, greedy tokens equal.
   5. serve   -- `repro_torch.launch.serve.main` at llama3-8b's full widths,
                 all 32 layers, bf16, 8 requests of 384-512 prompt tokens and
                 64 new tokens each, max_seq 1024; the kernels' launch counts
                 are zeroed just before and read just after.
-  6. a JSON line {"kernels": [...]} with each kernel's launches in phase 5
-     and its numbers at the serving shapes.
-  7. the last line: {"ok": true, "device": {...}}.
+  6. train parity -- reduced zamba2 in f32 (TF32 off), the same seeded
+                params stepped once on the card (kernels) and on the CPU
+                (plain versions): loss, grad norm and params within 1e-4.
+  7. train   -- `repro_torch.launch.train.main` at zamba2-1.2b's full
+                widths (38 layers, bf16, remat full, 4 microbatches), 3 steps
+                of 8 x 2048 tokens; the launch counts are zeroed just before
+                and read just after and must equal `train_launches`.
+  8. a JSON line {"kernels": [...]} with each kernel's launches in phases 5
+     and 7 and its numbers at its main path's shapes.
+  9. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package `repro`.
 """
@@ -116,6 +131,7 @@ def kernel_cases(torch, F, fa, fd):
     cases = []
     for dt in ("bfloat16", "float32"):
         cases += [("flash_attention", dt, dict(B=8, S=512, H=32, K=8, D=128)),
+                  ("flash_attention", dt, dict(B=2, S=2048, H=32, K=32, D=64)),
                   ("flash_attention", dt, dict(B=2, S=192, H=32, K=1, D=128)),
                   ("flash_attention", dt, dict(B=2, S=200, H=32, K=1, D=128))]
         cases += [("flash_decode", dt, dict(B=8, S=1024, H=32, K=8, D=128, vlen=vl))
@@ -235,6 +251,216 @@ def full_width_serve(torch, fa, fd):
     return launches
 
 
+# ------------------------------------------------ 3b. the training kernels
+def ssd_cost(b, s, h, p, n, chunk, esize, backward=False):
+    """(FLOPs, bytes) of the SSD scan or its backward on these shapes: only
+    the causal (t, u) pairs of each chunk; each input read once, each output
+    written once.  B and C are shared by the heads, so C.B^T (and, in the
+    backward, dB and dC from the head-summed gate gradient) is one product
+    per (batch, chunk).  Per head and chunk, forward: W.x over the pairs,
+    C.S and the state update; backward: dy.x^T and dx over the pairs, and
+    five (n x p x chunk) products (the state recomputed, dS, dC's, dx's and
+    dB's state terms)."""
+    pairs = chunk * (chunk + 1) // 2
+    if backward:
+        per_head = 2 * pairs * 2 * p + 5 * 2 * chunk * n * p
+        shared = 3 * 2 * pairs * n
+    else:
+        per_head = 2 * pairs * p + 2 * 2 * chunk * n * p
+        shared = 2 * pairs * n
+    ins = esize * (b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + 2 * h)
+    ys = esize * b * s * h * p
+    flops = b * (s // chunk) * (h * per_head + shared)
+    return flops, (2 * ins + ys) if backward else (ins + ys)
+
+
+def _rel_err(out, ref):
+    return (float((out.float() - ref.float()).abs().max())
+            / (float(ref.float().abs().max()) + 1e-6))
+
+
+def _row(torch, kname, dtn, c, errs, flops, nbytes, run, plain, lib, iters, flush):
+    """Check the relative errors, time the three calls, print and return."""
+    err_abs = max(e[0] for e in errs.values())
+    err_rel = max(e[1] for e in errs.values())
+    if not err_rel <= TOL[dtn]:
+        raise AssertionError(f"{kname} {dtn} {c}: relative error {errs} > {TOL[dtn]}")
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtn], nbytes / HBM_BYTES_PER_S
+    row = {"kernel": kname, "dtype": dtn, **c, "max_abs_err": err_abs,
+           "max_rel_err": err_rel, "ms": time_ms(torch, run, iters, flush),
+           "plain_ms": time_ms(torch, plain, iters, flush),
+           "library_ms": time_ms(torch, lib, iters, flush) if lib else None,
+           "bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def training_kernel_cases(torch, F, fa, ssd):
+    """ssd_scan, ssd_scan_bwd and flash_attention_bwd against their plain
+    versions; return the rows keyed like kernel_cases'."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    rows = {}
+
+    def rnd(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(dt)
+
+    ssd_shapes = [dict(b=2, s=2048, h=64, p=64, n=64, chunk=256),   # zamba2-1.2b
+                  dict(b=2, s=256, h=8, p=32, n=16, chunk=32),      # reduced zamba2
+                  dict(b=2, s=512, h=2, p=16, n=8, chunk=128)]      # test sweep
+    fa_shapes = [dict(B=2, S=2048, H=32, K=32, D=64),               # zamba2 shared block
+                 dict(B=2, S=1024, H=32, K=8, D=128),               # GQA
+                 dict(B=2, S=200, H=32, K=8, D=64)]                 # ragged
+    for dtn in ("bfloat16", "float32"):
+        dt = getattr(torch, dtn)
+        for c in ssd_shapes:
+            b, s, h, p, n, chunk = (c[k] for k in ("b", "s", "h", "p", "n", "chunk"))
+            x, B, C = rnd((b, s, h, p), dt), rnd((b, s, n), dt), rnd((b, s, n), dt)
+            # dt as the reference's test_ssd_kernel_sweep draws it (|N(0, 0.1)|),
+            # A = -exp(a_log) as the model initialises it, in [-16, -1]
+            dtv = rnd((b, s, h), torch.float32, 0.1).abs()
+            A = -torch.linspace(1.0, 16.0, h, device="cuda")
+            D = torch.ones(h, device="cuda")
+            ins = (x, dtv, A, B, C, D)
+            f32 = [t.float() for t in ins]
+            esize = x.element_size()
+            # forward
+            y = ssd.ssd_scan(*ins, chunk=chunk)
+            ref = ssd.ssd_scan_plain(*f32, chunk=chunk)
+            torch.cuda.synchronize()
+            errs = {"y": (float((y.float() - ref).abs().max()), _rel_err(y, ref))}
+            flops, nbytes = ssd_cost(b, s, h, p, n, chunk, esize)
+            rows[("ssd_scan", dtn, tuple(sorted(c.items())))] = _row(
+                torch, "ssd_scan", dtn, c, errs, flops, nbytes,
+                lambda: ssd.ssd_scan(*ins, chunk=chunk),
+                lambda: ssd.ssd_scan_plain(*ins, chunk=chunk), None, 10, flush)
+            # backward
+            dy = rnd((b, s, h, p), dt)
+            got = ssd._launch_bwd(*ins, dy, chunk)
+            refs = ssd.ssd_scan_bwd_plain(*f32, dy.float(), chunk=chunk)
+            torch.cuda.synchronize()
+            errs = {k: (float((a.float() - r).abs().max()), _rel_err(a, r))
+                    for k, a, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, refs)}
+            live = [t.detach().requires_grad_(True) for t in ins]
+            y_plain = ssd.ssd_scan_plain(*live, chunk=chunk)
+            flops, nbytes = ssd_cost(b, s, h, p, n, chunk, esize, backward=True)
+            rows[("ssd_scan_bwd", dtn, tuple(sorted(c.items())))] = _row(
+                torch, "ssd_scan_bwd", dtn, c, errs, flops, nbytes,
+                lambda: ssd._launch_bwd(*ins, dy, chunk),
+                lambda: torch.autograd.grad(y_plain, live, dy, retain_graph=True),
+                None, 10, flush)
+            del y_plain, live
+        for c in fa_shapes:
+            B, S, H, K, D = (c[k] for k in ("B", "S", "H", "K", "D"))
+            scale = 1.0 / math.sqrt(D)
+            q, k, v = rnd((B, S, H, D), dt), rnd((B, S, K, D), dt), rnd((B, S, K, D), dt)
+            do = rnd((B, S, H, D), dt)
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+            got = fa._launch_bwd(q, k, v, o, lse, do, causal=True, scale=scale)
+            refs = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(),
+                                                causal=True, scale=scale)
+            torch.cuda.synchronize()
+            errs = {n_: (float((a.float() - r).abs().max()), _rel_err(a, r))
+                    for n_, a, r in zip(("dq", "dk", "dv"), got, refs)}
+            flops, nbytes = attention_cost(B, S, S, H, K, D, D, q.element_size())
+            flops = flops // 2 * 5           # S, dP, dV, dK and dQ over the causal pairs
+            nbytes += q.element_size() * (2 * B * S * H * D + 2 * B * S * K * D) \
+                + 4 * B * H * S              # do, dq read/written; dk, dv; lse
+            live = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            o_plain = fa.flash_attention_plain(*live, causal=True, scale=scale)
+            o_lib = F.scaled_dot_product_attention(
+                *(t.transpose(1, 2) for t in live), is_causal=True, scale=scale,
+                enable_gqa=True).transpose(1, 2)
+            rows[("flash_attention_bwd", dtn, tuple(sorted(c.items())))] = _row(
+                torch, "flash_attention_bwd", dtn, c, errs, flops, nbytes,
+                lambda: fa._launch_bwd(q, k, v, o, lse, do, causal=True, scale=scale),
+                lambda: torch.autograd.grad(o_plain, live, do, retain_graph=True),
+                lambda: torch.autograd.grad(o_lib, live, do, retain_graph=True), 10, flush)
+            del o_plain, o_lib, live
+    del flush
+    return rows
+
+
+def train_launches(cfg, microbatches: int) -> dict:
+    """Each kernel's launches in one hybrid train step, from the layer
+    structure and the remat nesting.  Per microbatch: G = n_layers //
+    attn_every groups of attn_every Mamba-2 layers, each group followed by
+    the shared attention block, then n_layers % attn_every tail layers.
+    Under remat="full" each group is checkpointed and so is each Mamba-2
+    layer in it (as in the reference), so a group's layer runs its forward
+    three times (forward, the group's recompute, its own recompute), a tail
+    layer twice and the shared block twice; each backward runs once."""
+    k = cfg.attn_every
+    groups, tail = cfg.n_layers // k, cfg.n_layers % k
+    full = cfg.remat == "full"
+    per_mb = {"ssd_scan": groups * k * (3 if full else 1) + tail * (2 if full else 1),
+              "ssd_scan_bwd": cfg.n_layers,
+              "flash_attention": groups * (2 if full else 1),
+              "flash_attention_bwd": groups}
+    return {name: microbatches * n for name, n in per_mb.items()}
+
+
+# ------------------------------------------------------------ 6. train parity
+def train_parity(torch):
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.models import init_params
+    from repro_torch.training import (AdamW, make_train_state, make_train_step,
+                                      synthetic_batch)
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = reduced("zamba2_1p2b")                    # f32 params and compute
+    # eps 1e-3: Adam's first update g / (|g| + eps) would otherwise divide
+    # the f32 noise of near-zero gradient elements by their own size
+    opt = AdamW(lr=1e-3, eps=1e-3, warmup=1, total_steps=4)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = _to(init_params(cfg, seed=0, device="cpu"), dev)
+        state, m = make_train_step(cfg, opt)(make_train_state(params, opt),
+                                             synthetic_batch(cfg, 2, 64, device=dev))
+        out[dev] = (state.params, {k: float(v) for k, v in m.items()})
+    (pc, mc), (pg, mg) = out["cpu"], out["cuda"]
+    worst = 0.0
+    for k in ("loss", "grad_norm"):
+        worst = max(worst, abs(mg[k] - mc[k]) / max(1.0, abs(mc[k])))
+    for a, b in zip(tree_leaves(pc), tree_leaves(pg)):
+        worst = max(worst, float(((b.cpu() - a).abs() / (1 + a.abs())).max()))
+    print(json.dumps({"train_parity": {"cpu": mc, "cuda": mg, "max_err": worst}}))
+    if not worst <= 1e-4:
+        raise AssertionError(f"reduced zamba2 train step differs cuda vs cpu by {worst} > 1e-4")
+
+
+# ----------------------------------------------------------------- 7. train
+def full_width_train(torch, fa, ssd):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import main as train_main
+
+    argv = ["--arch", "zamba2-1.2b", "--steps", "3", "--batch", "8", "--seq", "2048"]
+    counters = {"flash_attention": fa.flash_attention, "flash_attention_bwd": fa._launch_bwd,
+                "ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd._launch_bwd}
+    for fn in counters.values():
+        fn.launches = 0
+    stats = train_main(argv)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(json.dumps({"train": stats, "launches": launches}))
+    cfg = get_config("zamba2_1p2b")
+    expected = {k: 3 * n for k, n in train_launches(cfg, cfg.train_microbatches).items()}
+    print(f"launches {launches}, expected {expected} (3 steps)")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} != {expected}")
+    losses = stats["losses"]
+    if not (len(losses) == 3 and all(math.isfinite(x) for x in losses)
+            and abs(losses[0] - math.log(cfg.vocab)) < 1.5):
+        raise AssertionError(f"losses {losses}: not 3 finite, or the first far from "
+                             f"ln {cfg.vocab} = {math.log(cfg.vocab):.2f}")
+    print(json.dumps({"step_seconds": stats["step_seconds"],
+                      "tokens_per_s": stats["tokens_per_s"],
+                      "max_memory_allocated": stats["max_memory_allocated"]}))
+    return launches
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -247,10 +473,12 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ssd_scan as ssd
 
     phase("2. build")
     t0 = time.perf_counter()
-    logs = _build.build(["flash_attention", "flash_decode"])
+    logs = _build.build(["flash_attention", "flash_attention_bwd", "flash_decode",
+                         "ssd_scan"])
     print(f"built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f}s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -259,29 +487,46 @@ def main() -> int:
 
     phase("3. kernels vs plain")
     rows = kernel_cases(torch, F, fa, fd)
+    rows.update(training_kernel_cases(torch, F, fa, ssd))
 
-    phase("4. slice parity (reduced llama3-8b, f32, cuda vs cpu)")
+    phase("4. serve parity (reduced llama3-8b, f32, cuda vs cpu)")
     slice_parity(torch)
 
     phase("5. full-width llama3-8b serve (bf16, 32 layers)")
-    launches = full_width_serve(torch, fa, fd)
+    serve_launches = full_width_serve(torch, fa, fd)
 
-    phase("6. kernels")
+    phase("6. train parity (reduced zamba2, f32, cuda vs cpu)")
+    train_parity(torch)
+
+    phase("7. full-width zamba2-1.2b train (bf16, 38 layers, 3 steps)")
+    train_launches_seen = full_width_train(torch, fa, ssd)
+
+    phase("8. kernels")
     main_shape = {
         "flash_attention": ("bfloat16", dict(B=8, S=512, H=32, K=8, D=128)),
         "flash_decode": ("bfloat16", dict(B=8, S=1024, H=32, K=8, D=128, vlen=513)),
+        "ssd_scan": ("bfloat16", dict(b=2, s=2048, h=64, p=64, n=64, chunk=256)),
+        "ssd_scan_bwd": ("bfloat16", dict(b=2, s=2048, h=64, p=64, n=64, chunk=256)),
+        "flash_attention_bwd": ("bfloat16", dict(B=2, S=2048, H=32, K=32, D=64)),
     }
+    csrc = "src/repro_torch/kernels/csrc/"
     meta = {
-        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+        "flash_attention": (csrc + "flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:85"),
-        "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
-                         "src/repro/kernels/flash_decode.py:70"),
+        "flash_decode": (csrc + "flash_decode.cu", "src/repro/kernels/flash_decode.py:70"),
+        "ssd_scan": (csrc + "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:68"),
+        "ssd_scan_bwd": (csrc + "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:68"),
+        "flash_attention_bwd": (csrc + "flash_attention_bwd.cu",
+                                "src/repro/kernels/flash_attention.py:85"),
     }
     kernels = []
     for name, (dtn, c) in main_shape.items():
         row = rows[(name, dtn, tuple(sorted(c.items())))]
+        by_path = {"serve": serve_launches.get(name, 0),
+                   "train": train_launches_seen.get(name, 0)}
         kernels.append({"name": name, "route": "cuda", "source": meta[name][0],
-                        "replaces": meta[name][1], "launches": launches[name],
+                        "replaces": meta[name][1], "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                "bound_ms", "bound_by", "library_ms")}})
     print(smi)

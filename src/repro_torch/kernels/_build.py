@@ -97,19 +97,25 @@ def load(name: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DtypeCode
 
 
-def check_inputs(kernel: str, *tensors: torch.Tensor) -> int:
-    """Validate tensors for a kernel launch: one CUDA device, one dtype the
-    kernels take, contiguous, 16-byte aligned.  Returns the dtype code."""
-    t0 = tensors[0]
-    code = DTYPE_CODES.get(t0.dtype)
+def check_inputs(kernel: str, *args) -> int:
+    """Validate tensors for a kernel launch: one CUDA device, contiguous,
+    16-byte aligned.  Each argument is a tensor, or a (tensor, dtype) pair
+    that declares that tensor's own dtype (e.g. ssd_scan's float32 dt beside
+    bfloat16 x).  Every bare tensor shares the first bare tensor's dtype,
+    one the kernels take.  Returns that dtype's code."""
+    pairs = [a if isinstance(a, tuple) else (a, None) for a in args]
+    bare = [t for t, want in pairs if want is None]
+    dtype = bare[0].dtype
+    code = DTYPE_CODES.get(dtype)
     if code is None:
-        raise TypeError(f"{kernel}: dtype {t0.dtype} not supported "
+        raise TypeError(f"{kernel}: dtype {dtype} not supported "
                         f"(float32, bfloat16)")
-    for t in tensors:
-        if t.device != t0.device or t.dtype != t0.dtype:
-            raise ValueError(f"{kernel}: all inputs must share device and "
-                             f"dtype ({t.device}/{t.dtype} vs "
-                             f"{t0.device}/{t0.dtype})")
+    device = pairs[0][0].device
+    for t, want in pairs:
+        want = dtype if want is None else want
+        if t.device != device or t.dtype != want:
+            raise ValueError(f"{kernel}: input on {t.device}/{t.dtype}, "
+                             f"expected {device}/{want}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{kernel}: inputs must be contiguous and "
                              f"16-byte aligned")

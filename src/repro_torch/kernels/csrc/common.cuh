@@ -1,4 +1,4 @@
-// Shared helpers for the attention kernels: vector loads that widen
+// Shared helpers for the kernels: vector and scalar loads that widen
 // float32 / bfloat16 to float32, and the store back to the input type.
 #pragma once
 
@@ -63,6 +63,32 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* __restrict__ p, fl
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) out[i] = __bfloat162float(p[i]);
+  }
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Copy rows [row0, row0 + rows) of one attention head (D values a row,
+// consecutive positions src_row_stride elements apart) into a shared f32
+// tile with row stride `stride`, 16 bytes a load; rows past `n_rows` are 0.
+template <typename T, int D, int kThreads>
+__device__ __forceinline__ void load_rows(float* __restrict__ dst, int stride,
+                                          const T* __restrict__ src, size_t src_row_stride,
+                                          int row0, int rows, int n_rows) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kChunks = D / kVec;
+  for (int e = threadIdx.x; e < rows * kChunks; e += kThreads) {
+    const int r = e / kChunks, c = (e % kChunks) * kVec;
+    float tmp[kVec];
+    if (row0 + r < n_rows) {
+      load_vec<kVec>(src + (size_t)(row0 + r) * src_row_stride + c, tmp);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) tmp[i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) dst[r * stride + c + i] = tmp[i];
   }
 }
 

@@ -39,33 +39,10 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (kBQ * (D + 1) + kBKV * (D + 1) + kBKV * D + kBQ * (kBKV + 1));
 }
 
-// Copy rows [row0, row0 + rows) of one head into a shared f32 tile with row
-// stride `stride`; rows past `n_rows` are zero.  src_row_stride is the
-// element distance between consecutive sequence positions.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst, int stride,
-                                          const T* __restrict__ src, size_t src_row_stride,
-                                          int row0, int rows, int n_rows) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = D / kVec;
-  for (int e = threadIdx.x; e < rows * kChunks; e += kThreads) {
-    const int r = e / kChunks, c = (e % kChunks) * kVec;
-    float tmp[kVec];
-    if (row0 + r < n_rows) {
-      load_vec<kVec>(src + (size_t)(row0 + r) * src_row_stride + c, tmp);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) tmp[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) dst[r * stride + c + i] = tmp[i];
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
+                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                        int Sq, int Skv, int H, int K, int causal, float scale) {
   constexpr int QS = D + 1, KS = D + 1, VS = D, PS = kBKV + 1;
   constexpr int C = D / 16;  // accumulator columns per thread
@@ -81,7 +58,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kh = h / (H / K);
   const int shift = Skv - Sq;  // query i sits at key position i + shift
 
-  load_tile<T, D>(Qs, QS, q + ((size_t)b * Sq * H + h) * D, (size_t)H * D, q0, kBQ, Sq);
+  load_rows<T, D, kThreads>(Qs, QS, q + ((size_t)b * Sq * H + h) * D, (size_t)H * D, q0, kBQ, Sq);
 
   float m[4], l[4], acc[4][C];
 #pragma unroll
@@ -99,8 +76,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t0 = 0; t0 < kv_end; t0 += kBKV) {
     __syncthreads();  // the previous tile is consumed
-    load_tile<T, D>(Ks, KS, kb, (size_t)K * D, t0, kBKV, Skv);
-    load_tile<T, D>(Vs, VS, vb, (size_t)K * D, t0, kBKV, Skv);
+    load_rows<T, D, kThreads>(Ks, KS, kb, (size_t)K * D, t0, kBKV, Skv);
+    load_rows<T, D, kThreads>(Vs, VS, vb, (size_t)K * D, t0, kBKV, Skv);
     __syncthreads();
 
     float s[4][4];
@@ -174,6 +151,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + ty * 4 + i;
     if (qi >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    // per-row logsumexp of the scaled scores, for the backward; a row with
+    // no key gets +inf, so exp(s - lse) is 0 there
+    if (lse && tx == 0)
+      lse[((size_t)b * H + h) * Sq + qi] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
     T* orow = o + (((size_t)b * Sq + qi) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < C; ++c) orow[tx + 16 * c] = from_float<T>(acc[i][c] * inv);
@@ -181,8 +162,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                   int Skv, int H, int K, int causal, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int Sq, int Skv, int H, int K, int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   auto kern = flash_attention_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -190,19 +171,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                         static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv,
-                                         H, K, causal, scale);
+                                         static_cast<const T*>(v), static_cast<T*>(o), lse, Sq,
+                                         Skv, H, K, causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void* o, int B,
-                       int Sq, int Skv, int H, int K, int causal, float scale,
+cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void* o, float* lse,
+                       int B, int Sq, int Skv, int H, int K, int causal, float scale,
                        cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, K, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, K, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, K, causal, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -211,20 +192,23 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void*
 }  // namespace repro_torch
 
 // q: (B, Sq, H, D), k/v: (B, Skv, K, D), o: (B, Sq, H, D), all contiguous and
-// 16-byte aligned, H % K == 0.  Launches on `stream`, allocates nothing, and
-// returns the cudaError_t of the launch (0 on success).
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                   int Sq, int Skv, int H, int K, int D, int causal,
-                                   float scale, int dtype, void* stream) {
+// 16-byte aligned, H % K == 0.  lse, if not null, receives the per-row
+// logsumexp of the scaled scores, (B, H, Sq) float32, for the backward.
+// Launches on `stream`, allocates nothing, and returns the cudaError_t of
+// the launch (0 on success).
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                   void* lse, int B, int Sq, int Skv, int H, int K, int D,
+                                   int causal, float scale, int dtype, void* stream) {
   using namespace repro_torch;
   if (B <= 0 || Sq <= 0 || H <= 0 || K <= 0 || H % K != 0 || Skv < 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (dtype) {
     case kFloat32:
-      return dispatch_d<float>(D, q, k, v, o, B, Sq, Skv, H, K, causal, scale, s);
+      return dispatch_d<float>(D, q, k, v, o, l, B, Sq, Skv, H, K, causal, scale, s);
     case kBFloat16:
-      return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, Sq, Skv, H, K, causal, scale, s);
+      return dispatch_d<__nv_bfloat16>(D, q, k, v, o, l, B, Sq, Skv, H, K, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

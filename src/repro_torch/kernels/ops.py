@@ -1,9 +1,13 @@
-"""Attention dispatch: the port's counterpart of `repro.kernels.ops.attention`.
+"""Kernel dispatch: the port's counterpart of `repro.kernels.ops.attention`
+and `ops.ssd_scan`.
 
-The two dispatch points are the reference's (`ops.py:216` and `:221`):
+The three dispatch points are the reference's (`ops.py:216`, `:221` and
+`:263`):
 
-  * causal self-attention with Sq == Skv (prefill)  -> `flash_attention`;
-  * one query token against a cache (`kv_valid_len`) -> `flash_decode`.
+  * causal self-attention with Sq == Skv (prefill, training)
+                                                     -> `flash_attention`;
+  * one query token against a cache (`kv_valid_len`) -> `flash_decode`;
+  * the SSD scan without a final state (training)    -> `ssd_scan`.
 
 On a CUDA tensor those launch the hand-written Hopper kernels; on a CPU
 tensor the same calls take the kernels' plain versions.  Everything else
@@ -19,6 +23,7 @@ from typing import Optional
 
 from . import flash_attention as fa
 from . import flash_decode as fd
+from . import ssd_scan as ssd
 from .ref import naive_attention
 
 
@@ -47,3 +52,20 @@ def attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
     # small / cross path: plain torch, as it is jnp in the reference
     return naive_attention(q, k, v, causal=causal, scale=scale,
                            kv_valid_len=kv_valid_len)
+
+
+# ================================================================== SSD scan
+def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256,
+             return_final_state: bool = False):
+    """Mamba-2 SSD (matches `ref.naive_ssd`), the reference's dispatch
+    (`ops.py:254-266`): without `return_final_state` the hand-written
+    kernel (its plain version on a CPU tensor).  The kernel does not emit
+    the final state, so on a CUDA tensor `return_final_state` raises (hybrid
+    prefill, ROADMAP queue 1); on the CPU it takes `ssd_scan_plain`."""
+    if not return_final_state:
+        return ssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    if x.device.type != "cpu":
+        raise NotImplementedError("ssd_scan with return_final_state has no "
+                                  "kernel yet: ROADMAP queue 1, hybrid serving")
+    return ssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk,
+                              return_final_state=True)

@@ -1,8 +1,9 @@
-"""Plain-torch oracles for the attention kernels (small shapes; tests).
+"""Plain-torch oracles for the kernels (small shapes; tests).
 
 `naive_attention` is the counterpart of `repro.kernels.ref.naive_attention`:
-it materializes the full score matrix in float32.  `naive_ssd` and
-`naive_mlstm` come with the recurrent-family slice.
+it materializes the full score matrix in float32.  `naive_ssd` is that of
+`repro.kernels.ref.naive_ssd`, the sequential Mamba-2 recurrence.
+`naive_mlstm` comes with the xLSTM slice.
 """
 from __future__ import annotations
 
@@ -41,3 +42,27 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     a = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", a, v.float())
     return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def naive_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """Mamba-2 SSD reference: sequential recurrence over time.
+
+    x: (b, s, h, p) input per head; dt: (b, s, h) positive step sizes;
+    A: (h,) negative decay rate per head; B, C: (b, s, n) input/output
+    projections shared across heads; D: (h,) skip.  Returns (b, s, h, p)
+    in x's dtype; the state is f32.
+    """
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf = B.float(), C.float()
+    decay = torch.exp(dtf * A.float()[None, None, :])           # (b,s,h)
+    st = x.new_zeros((b, h, p, n), dtype=torch.float32)
+    ys = []
+    for t in range(s):
+        db = dtf[:, t, :, None, None] * Bf[:, t, None, None, :]  # (b,h,1,n)
+        st = st * decay[:, t, :, None, None] + xf[:, t, :, :, None] * db
+        ys.append(torch.einsum("bhpn,bn->bhp", st, Cf[:, t]))
+    y = torch.stack(ys, dim=1) + xf * D.float()[None, None, :, None]
+    return y.to(x.dtype)

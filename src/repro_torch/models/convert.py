@@ -12,7 +12,7 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from .config import ModelConfig, torch_dtype
+from .config import ModelConfig
 from .model import init_params
 
 
@@ -28,15 +28,15 @@ def from_jax_params(np_params: Dict[str, Any], cfg: ModelConfig,
                     device) -> Dict[str, Any]:
     """np_params: the JAX param pytree with numpy leaves (e.g.
     `jax.tree.map(np.asarray, params)`).  Returns the port's params on
-    `device` in cfg.param_dtype.  Raises on a missing or unused key or a
-    shape that differs."""
+    `device`, each leaf in the dtype `init_params` gives it (cfg.param_dtype,
+    except the Mamba-2 leaves the reference keeps in float32).  Raises on a
+    missing or unused key or a shape that differs."""
     expected = dict(_flatten(init_params(cfg, device="meta")))
     given = dict(_flatten(np_params))
     missing = sorted(expected.keys() - given.keys())
     unused = sorted(given.keys() - expected.keys())
     if missing or unused:
         raise KeyError(f"param keys differ: missing {missing}, unused {unused}")
-    dt = torch_dtype(cfg.param_dtype)
     out: Dict[str, Any] = {}
     for key, ref in expected.items():
         a = np.asarray(given[key])
@@ -48,5 +48,5 @@ def from_jax_params(np_params: Dict[str, Any], cfg: ModelConfig,
         *path, leaf = key.split("/")
         for k in path:
             node = node.setdefault(k, {})
-        node[leaf] = t.to(device=device, dtype=dt)
+        node[leaf] = t.to(device=device, dtype=ref.dtype)
     return out

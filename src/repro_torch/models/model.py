@@ -1,20 +1,28 @@
-"""Dense decoder LM: init / forward / prefill / decode.
+"""Model assembly: init / forward / loss / prefill / decode.
 
-The port's counterpart of the dense branch of `repro.models.model`:
-[GQA attention + SwiGLU] blocks with pre-RMSNorm, per-layer params stacked
-on axis 0 under the reference's keys, and a Python loop over layers in place
-of `lax.scan`.  The KV cache is a pair of stacked (L, B, S, K, Dh) tensors;
-`decode_step` writes each layer's new row into it in place.
+The port's counterpart of `repro.models.model` for two families:
 
-Other families raise `NotImplementedError` naming the ROADMAP item (queue 1)
-that ports them.
+  dense  : [GQA attention + SwiGLU] blocks with pre-RMSNorm; trained,
+           prefilled and decoded.
+  hybrid : a Mamba-2 stack with one *shared-weight* GQA+SwiGLU block
+           applied every `attn_every` layers (Zamba-style); trained.
+
+Per-layer params are stacked on axis 0 under the reference's keys, and a
+Python loop over layers takes the place of `lax.scan`.  The KV cache is a
+pair of stacked (L, B, S, K, Dh) tensors; `decode_step` writes each layer's
+new row into it in place.
+
+Other families, and serving of the hybrid family, raise
+`NotImplementedError` naming the ROADMAP item (queue 1) that ports them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from . import ssm as ssm_mod
 from .config import ModelConfig, torch_dtype
 from .layers import (embed, gqa_fwd, init_embedding, init_gqa, init_rmsnorm,
                      init_swiglu, rmsnorm, swiglu_fwd, unembed)
@@ -22,20 +30,36 @@ from .layers import (embed, gqa_fwd, init_embedding, init_gqa, init_rmsnorm,
 Params = Dict[str, Any]
 
 
-def check_family(cfg: ModelConfig) -> None:
-    """Raise unless cfg is a dense GQA model, the family this port serves."""
+def check_family(cfg: ModelConfig, *, hybrid: bool = False) -> None:
+    """Raise unless cfg is a dense GQA model, or a hybrid one where the
+    caller allows it (init, forward, loss: the training path)."""
     if cfg.moe or cfg.family == "moe":
         item = "MoE"
     elif cfg.mla:
         item = "MLA"
-    elif cfg.family in ("ssm", "hybrid"):
+    elif cfg.family == "ssm":
         item = "recurrent families"
+    elif cfg.family == "hybrid":
+        if hybrid:
+            return
+        item = "hybrid serving"
     elif cfg.family in ("vlm", "audio"):
         item = "VLM and audio"
     else:
         return
     raise NotImplementedError(f"{cfg.name} ({cfg.family}) is not ported yet: "
                               f"ROADMAP queue 1, {item}")
+
+
+def _remat(fn, cfg: ModelConfig):
+    """Activation checkpointing: "full" recomputes fn's activations in the
+    backward pass (`torch.utils.checkpoint`, non-reentrant, so nested
+    checkpoints and params closed over by fn work)."""
+    if cfg.remat == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        raise NotImplementedError("remat='dots' is not ported (no config uses it)")
+    return fn
 
 
 def _layer(stacked: Params, i: int) -> Params:
@@ -62,23 +86,31 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     """Random params from a seeded `torch.Generator` on `device`, with the
     reference's keys and shapes.  The numbers differ from `jax.random`'s;
     tests carry JAX params over with `convert.from_jax_params`."""
-    check_family(cfg)
+    check_family(cfg, hybrid=True)
     device = torch.device(device)
     gen = None  # the meta device has no generator: shapes only
     if device.type != "meta":
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
     dt = torch_dtype(cfg.param_dtype)
-    L, d = cfg.n_layers, cfg.d_model
+    d = cfg.d_model
+    p = {"embed": init_embedding(gen, cfg), "ln_f": init_rmsnorm(d, dt, device)}
+    if cfg.family == "hybrid":
+        p["layers"] = ssm_mod.init_mamba2(gen, cfg, lead=(cfg.n_layers,))
+        p["shared_attn"] = _init_block(gen, cfg, device)
+    else:
+        p["layers"] = _init_block(gen, cfg, device, lead=(cfg.n_layers,))
+    return p
+
+
+def _init_block(gen, cfg: ModelConfig, device, lead=()) -> Params:
+    dt = torch_dtype(cfg.param_dtype)
+    d = cfg.d_model
     return {
-        "embed": init_embedding(gen, cfg),
-        "ln_f": init_rmsnorm(d, dt, device),
-        "layers": {
-            "ln1": init_rmsnorm(d, dt, device, lead=(L,)),
-            "ln2": init_rmsnorm(d, dt, device, lead=(L,)),
-            "attn": init_gqa(gen, cfg, lead=(L,)),
-            "ffn": init_swiglu(gen, d, cfg.d_ff, dt, lead=(L,)),
-        },
+        "ln1": init_rmsnorm(d, dt, device, lead=lead),
+        "ln2": init_rmsnorm(d, dt, device, lead=lead),
+        "attn": init_gqa(gen, cfg, lead=lead),
+        "ffn": init_swiglu(gen, d, cfg.d_ff, dt, lead=lead),
     }
 
 
@@ -86,16 +118,90 @@ def _positions(B: int, start: int, S: int, device) -> torch.Tensor:
     return torch.arange(start, start + S, device=device)[None].expand(B, S)
 
 
-# ============================================================ forward
+# ---------------------------------------------------------------- hybrid util
+def _hybrid_split(cfg: ModelConfig, stacked):
+    """(L, ...) stacked mamba params -> ((G, k, ...), (tail, ...)), views."""
+    k = cfg.attn_every
+    g = cfg.n_layers // k
+    body = {n: v[:g * k].reshape(g, k, *v.shape[1:]) for n, v in stacked.items()}
+    tail = {n: v[g * k:] for n, v in stacked.items()}
+    return body, tail
+
+
+def _hybrid_join(cfg: ModelConfig, body, tail):
+    """The inverse of `_hybrid_split`."""
+    return {n: torch.cat([b.reshape(-1, *b.shape[2:]), tail[n]], dim=0)
+            for n, b in body.items()}
+
+
+# ============================================================ forward (train)
+class TrainBatch(NamedTuple):
+    tokens: torch.Tensor                   # (B, S) inputs
+    labels: torch.Tensor                   # (B, S) next-token targets
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, padded_vocab)."""
-    check_family(cfg)
+    """tokens (B, S) -> logits (B, S, padded_vocab).  Layers (dense) or
+    groups and tail layers (hybrid) are checkpointed as cfg.remat says."""
+    check_family(cfg, hybrid=True)
     x = embed(params["embed"], tokens, cfg)
     positions = _positions(tokens.shape[0], 0, tokens.shape[1], tokens.device)
-    for i in range(cfg.n_layers):
-        x, _ = _block_fwd(_layer(params["layers"], i), x, cfg, positions=positions)
+    if cfg.family == "hybrid":
+        x = _hybrid_forward(params, x, positions, cfg)
+    else:
+        def body(h, i):
+            return _block_fwd(_layer(params["layers"], i), h, cfg,
+                              positions=positions)[0]
+        body = _remat(body, cfg)
+        for i in range(cfg.n_layers):
+            x = body(x, i)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return unembed(params["embed"], x, cfg)
+
+
+def _hybrid_forward(params: Params, x, positions, cfg: ModelConfig):
+    """Groups of `attn_every` Mamba-2 layers, each group followed by the
+    shared block (the same params at every application), then the tail
+    layers.  As in the reference, each group is checkpointed and so is
+    each Mamba-2 layer inside it."""
+    shared = params["shared_attn"]
+    body, tail = _hybrid_split(cfg, params["layers"])
+
+    def m_body(h, lp):
+        d, _ = ssm_mod.mamba2_fwd(lp, h, cfg)
+        return h + d
+
+    m_body = _remat(m_body, cfg)
+
+    def group_body(h, gi):
+        gp = _layer(body, gi)
+        for j in range(cfg.attn_every):
+            h = m_body(h, _layer(gp, j))
+        return _block_fwd(shared, h, cfg, positions=positions)[0]
+
+    group_body = _remat(group_body, cfg)
+    for gi in range(cfg.n_layers // cfg.attn_every):
+        x = group_body(x, gi)
+    for j in range(cfg.n_layers % cfg.attn_every):
+        x = m_body(x, _layer(tail, j))
+    return x
+
+
+def loss_fn(params: Params, batch: TrainBatch, cfg: ModelConfig,
+            aux_coef: float = 0.01):
+    """Next-token cross-entropy over the padded vocab, plus a 1e-4 z-loss
+    and `aux_coef` times the aux loss (0 for the ported families).
+    Returns (loss, {"nll", "aux", "zloss"}), all f32 scalars."""
+    logits = forward(params, batch.tokens, cfg).float()
+    aux = logits.new_zeros(())
+    logz = torch.logsumexp(logits, dim=-1)
+    # the gold logit by gather: the same value as the reference's masked
+    # sum (one non-zero term), without a (B, S, V) mask
+    gold = torch.gather(logits, -1, batch.labels[..., None].long())[..., 0]
+    nll = (logz - gold).mean()
+    zloss = 1e-4 * (logz ** 2).mean()
+    loss = nll + zloss + aux_coef * aux
+    return loss, {"nll": nll, "aux": aux, "zloss": zloss}
 
 
 # ======================================================== caches + decode step

@@ -1,0 +1,38 @@
+"""Synthetic token pipeline: deterministic and infinite.
+
+The port's counterpart of `repro.training.data`.  Each batch comes from
+numpy seeded by (seed, step), exactly as in the reference, so both packages
+train on the same tokens and an elastic restart resumes the exact stream.
+`input_specs` comes with the dry-run slice.
+"""
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.models import TrainBatch
+from repro_torch.models.config import ModelConfig
+
+
+def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,
+                    step: int = 0, device="cuda") -> TrainBatch:
+    """One deterministic batch on `device`: a Markov-ish token stream (not
+    uniform noise, so losses move during short trainings).  Tokens and
+    labels are int64."""
+    rng = np.random.default_rng((seed * 1_000_003 + step) % (2 ** 63))
+    base = rng.integers(0, cfg.vocab, size=(batch, 1), dtype=np.int64)
+    drift = rng.integers(-32, 33, size=(batch, seq + 1), dtype=np.int64)
+    toks = np.abs(base + np.cumsum(drift, axis=1)) % cfg.vocab
+    tokens = torch.from_numpy(np.ascontiguousarray(toks[:, :-1])).to(device)
+    labels = torch.from_numpy(np.ascontiguousarray(toks[:, 1:])).to(device)
+    return TrainBatch(tokens=tokens, labels=labels)
+
+
+def stream(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,
+           start_step: int = 0, device="cuda") -> Iterator[TrainBatch]:
+    step = start_step
+    while True:
+        yield synthetic_batch(cfg, batch, seq, seed=seed, step=step, device=device)
+        step += 1

@@ -10,7 +10,10 @@ with an H100:
 Tolerances: 1e-4 in float32 (same f32 math, another summation order), 2e-2
 in bfloat16 against the plain version computed in f32 from the same inputs
 (only the output's rounding to bf16 differs, plus, for decode, the scale
-applied in f32).
+applied in f32).  The SSD scan and the backward kernels are held
+scale-relative (error over the largest magnitude of the reference), as
+`tests/test_kernels.py` holds the SSD kernel: their outputs span orders of
+magnitude.
 """
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -111,3 +115,139 @@ def test_kernel_rejects_unsupported_head_dim(cuda):
         fa.flash_attention(q, q, q)
     with pytest.raises(ValueError):
         fd.flash_decode(q[:, :1], q, q, 8)
+
+
+def _rel(a, ref):
+    return _err(a, ref) / (float(ref.float().abs().max()) + 1e-6)
+
+
+def _ssd_inputs(rng, b, s, h, p, n, dtype, device):
+    x = _rnd(rng, (b, s, h, p), dtype, device)
+    dt = torch.from_numpy(np.abs(rng.standard_normal((b, s, h)) * 0.1).astype(np.float32)
+                          ).to(device)
+    A = -torch.from_numpy(np.abs(rng.standard_normal(h)).astype(np.float32)).to(device)
+    B, C = _rnd(rng, (b, s, n), dtype, device), _rnd(rng, (b, s, n), dtype, device)
+    D = _rnd(rng, (h,), torch.float32, device)
+    return x, dt, A, B, C, D
+
+
+SSD_SHAPES = [  # (b, s, h, p, n, chunk)
+    (2, 128, 2, 16, 8, 32),      # the sweep of tests/test_kernels.py
+    (2, 256, 2, 16, 8, 64),
+    (2, 512, 2, 16, 8, 128),
+    (2, 128, 8, 32, 16, 32),     # reduced zamba2
+    (1, 512, 4, 64, 64, 256),    # zamba2-1.2b's head widths
+    (1, 300, 3, 24, 12, 100),    # chunk not a multiple of the 64-row tile
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_vs_plain(cuda, b, s, h, p, n, chunk, dtype):
+    x, dt, A, B, C, D = _ssd_inputs(np.random.default_rng(3), b, s, h, p, n, dtype, cuda)
+    n0 = ssd.ssd_scan.launches
+    y = ssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == n0 + 1
+    ref = ssd.ssd_scan_plain(x.float(), dt, A, B.float(), C.float(), D, chunk=chunk)
+    assert y.dtype == dtype and y.shape == x.shape
+    assert _rel(y, ref) < TOL[dtype]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_bwd_kernel_vs_plain(cuda, b, s, h, p, n, chunk, dtype):
+    rng = np.random.default_rng(4)
+    ins = _ssd_inputs(rng, b, s, h, p, n, dtype, cuda)
+    dy = _rnd(rng, (b, s, h, p), dtype, cuda)
+    n0 = ssd._launch_bwd.launches
+    got = ssd._launch_bwd(*ins, dy, chunk)
+    torch.cuda.synchronize()
+    assert ssd._launch_bwd.launches == n0 + 1
+    x, dt, A, B, C, D = ins
+    ref = ssd.ssd_scan_bwd_plain(x.float(), dt, A, B.float(), C.float(), D, dy.float(),
+                                 chunk=chunk)
+    for name, g, r, t in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, ref, ins):
+        assert g.dtype == t.dtype and g.shape == t.shape, name
+        assert _rel(g, r) < TOL[dtype], (name, _rel(g, r))
+
+
+def test_ssd_scan_autograd_uses_the_kernels(cuda):
+    x, dt, A, B, C, D = (t.requires_grad_(True) for t in _ssd_inputs(
+        np.random.default_rng(5), 2, 128, 4, 32, 16, torch.float32, cuda))
+    n0 = (ssd.ssd_scan.launches, ssd._launch_bwd.launches)
+    y = ops.ssd_scan(x, dt, A, B, C, D, chunk=32)
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (ssd.ssd_scan.launches, ssd._launch_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    ins = [t.detach() for t in (x, dt, A, B, C, D)]
+    ref = ssd.ssd_scan_bwd_plain(*ins, 2 * ssd.ssd_scan_plain(*ins, chunk=32), chunk=32)
+    for t, r in zip((x, dt, A, B, C, D), ref):
+        assert _rel(t.grad, r) < 1e-4
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,D", [
+    (2, 256, 256, 8, 8, 64),    # MHA, the zamba2 shared block's head width
+    (2, 256, 256, 8, 2, 128),   # GQA 4:1
+    (1, 192, 192, 4, 1, 32),    # MQA
+    (2, 200, 200, 4, 2, 64),    # ragged tail tile
+    (1, 64, 200, 4, 2, 64),     # Sq < Skv, end-aligned
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_kernel_vs_plain(cuda, B, Sq, Skv, H, K, D, dtype, causal):
+    rng = np.random.default_rng(6)
+    q = _rnd(rng, (B, Sq, H, D), dtype, cuda)
+    k, v = _rnd(rng, (B, Skv, K, D), dtype, cuda), _rnd(rng, (B, Skv, K, D), dtype, cuda)
+    do = _rnd(rng, (B, Sq, H, D), dtype, cuda)
+    scale = D ** -0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    n0 = fa._launch_bwd.launches
+    got = fa._launch_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert fa._launch_bwd.launches == n0 + 1
+    ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(),
+                                       causal=causal, scale=scale)
+    for name, g, r, t in zip(("dq", "dk", "dv"), got, ref, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape, name
+        assert _rel(g, r) < TOL[dtype], (name, _rel(g, r))
+
+
+def test_flash_attention_autograd_uses_the_kernels(cuda):
+    rng = np.random.default_rng(7)
+    q = _rnd(rng, (2, 128, 8, 64), torch.float32, cuda).requires_grad_(True)
+    k = _rnd(rng, (2, 128, 2, 64), torch.float32, cuda).requires_grad_(True)
+    v = _rnd(rng, (2, 128, 2, 64), torch.float32, cuda).requires_grad_(True)
+    n0 = (fa.flash_attention.launches, fa._launch_bwd.launches)
+    ops.attention(q, k, v, causal=True).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa._launch_bwd.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    ref = fa.flash_attention_bwd_plain(qd, kd, vd, 2 * fa.flash_attention_plain(qd, kd, vd))
+    for t, r in zip((q, k, v), ref):
+        assert _rel(t.grad, r) < 1e-4
+
+
+def test_flash_attention_without_grad_writes_no_logsumexp(cuda):
+    """Serving calls the forward kernel alone (no autograd node, no lse);
+    its output is the training path's, bit for bit."""
+    rng = np.random.default_rng(9)
+    q = _rnd(rng, (2, 128, 8, 128), torch.bfloat16, cuda)
+    k, v = (_rnd(rng, (2, 128, 2, 128), torch.bfloat16, cuda) for _ in range(2))
+    o_lse, lse = fa.flash_attention_fwd(q, k, v, causal=True, scale=128 ** -0.5)
+    n0 = fa.flash_attention.launches
+    with torch.no_grad():
+        o = ops.attention(q.requires_grad_(True), k, v, causal=True)
+    assert fa.flash_attention.launches == n0 + 1
+    assert o.grad_fn is None and lse.shape == (2, 8, 128)
+    assert torch.equal(o, o_lse)
+
+
+def test_ssd_kernel_rejects_unsupported_widths(cuda):
+    x, dt, A, B, C, D = _ssd_inputs(np.random.default_rng(8), 1, 64, 2, 128, 8,
+                                    torch.float32, cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        ssd.ssd_scan(x, dt, A, B, C, D, chunk=32)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        ops.ssd_scan(x[..., :16], dt, A, B, C, D, chunk=32, return_final_state=True)

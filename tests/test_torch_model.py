@@ -226,5 +226,13 @@ def test_from_jax_params_widens_bf16_exactly():
 @pytest.mark.parametrize("arch", ["olmoe_1b_7b", "deepseek_v2_236b", "xlstm_350m",
                                   "zamba2_1p2b", "internvl2_1b", "seamless_m4t_medium"])
 def test_unported_families_raise(arch):
+    cfg = reduced(arch)
+    if cfg.family == "hybrid":   # trains (init, forward, loss) but does not serve
+        params = init_params(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            prefill(params, torch.zeros((1, 8), dtype=torch.long), cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            init_cache(cfg, 1, 8, "cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        init_params(reduced(arch), device="cpu")
+        init_params(cfg, device="cpu")

@@ -1,0 +1,232 @@
+"""The port's SSD scan, flash-attention backward and Mamba-2 block against
+the JAX reference, on the CPU (the kernels' plain versions).
+
+Inputs are made with numpy from a seed and handed to both packages; bf16
+inputs are rounded from the same f32 numbers on both sides.  Tolerances:
+
+  * the SSD forward is held scale-relative (error over the reference's
+    largest magnitude), at the reference's own `tests/test_kernels.py`
+    tolerances: 2e-5 in f32 (both sides are f32 chunked sums in another
+    order) and 2e-2 in bf16 (one bf16 rounding of the output);
+  * gradients and the Mamba-2 block at 1e-4 (atol and rtol) in f32: longer
+    chains of f32 sums in another order.
+
+The reference runs compiled (`_jit`): op-by-op eager dispatch would spend
+seconds compiling each op for each shape.  The Pallas kernel runs in
+interpret mode, as the reference's own tests run it.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.reduced import reduced as jreduced  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.ssd_scan import ssd_scan as pallas_ssd  # noqa: E402
+from repro.models import model as jmodel  # noqa: E402
+from repro.models import ssm as jssm  # noqa: E402
+from repro_torch.configs.reduced import reduced  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.models import from_jax_params, init_params  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+SWEEP = [(128, 32), (256, 64), (512, 128)]   # test_ssd_kernel_sweep's (s, chunk)
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _ssd_np(seed, b=2, s=128, h=2, p=16, n=8):
+    """x, dt, A, B, C, D as float32 numpy, shaped as test_ssd_kernel_sweep."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+    return (f(b, s, h, p), np.abs(f(b, s, h) * 0.1), -np.abs(f(h)), f(b, s, n),
+            f(b, s, n), f(h))
+
+
+def _both(arrs, dtype):
+    """(jax arrays, torch tensors); x, B and C (0, 3, 4) in `dtype`."""
+    jdt, tdt, _ = DTYPES[dtype]
+    low = (0, 3, 4)
+    return ([jnp.asarray(a, jdt if i in low else jnp.float32) for i, a in enumerate(arrs)],
+            [torch.from_numpy(a).to(tdt if i in low else torch.float32)
+             for i, a in enumerate(arrs)])
+
+
+def _rel(j, t):
+    j = np.asarray(j, np.float32)
+    return float(np.abs(j - t.detach().float().numpy()).max()) / (float(np.abs(j).max()) + 1e-6)
+
+
+def _jit(fn, *args):
+    """fn(*args) compiled by XLA at its lowest backend optimisation level:
+    the same arithmetic, compiled in a fraction of the default's time."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})(*args)
+
+
+def _close(j, t, **tol):
+    np.testing.assert_allclose(t.detach().float().numpy(), np.asarray(j, np.float32),
+                               **(tol or TOL))
+
+
+# ------------------------------------------------------------ SSD forward
+@pytest.mark.parametrize("s,chunk", SWEEP)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("against", ["jnp", "pallas_interpret", "naive"])
+def test_ssd_scan_plain_matches_jax(s, chunk, dtype, against):
+    (jx, jdt, jA, jB, jC, jD), ins = _both(_ssd_np(s + chunk, s=s), dtype)
+    if against == "jnp":
+        jy = _jit(lambda *a: jops.ssd_scan(*a, chunk=chunk), jx, jdt, jA, jB, jC, jD)
+    elif against == "pallas_interpret":
+        jy = pallas_ssd(jx, jdt, jA, jB, jC, jD, chunk=chunk, interpret=True)
+    else:
+        jy = _jit(jref.naive_ssd, jx, jdt, jA, jB, jC, jD)
+    y = ssd.ssd_scan(*ins, chunk=chunk)       # a CPU tensor: the plain version
+    assert y.dtype == ins[0].dtype and y.shape == ins[0].shape
+    assert _rel(jy, y) < DTYPES[dtype][2]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_naive_ssd_matches_jax(dtype):
+    (jx, jdt, jA, jB, jC, jD), ins = _both(_ssd_np(1, s=48), dtype)
+    assert _rel(_jit(jref.naive_ssd, jx, jdt, jA, jB, jC, jD), ref.naive_ssd(*ins)) < \
+        DTYPES[dtype][2]
+
+
+def test_ssd_final_state_matches_jax():
+    jins, ins = _both(_ssd_np(2, s=256), "float32")
+    jy, jst = _jit(lambda *a: jops._ssd_jnp(*a, 64, return_final_state=True), *jins)
+    y, st = ops.ssd_scan(*ins, chunk=64, return_final_state=True)
+    assert st.shape == (2, 2, 16, 8) and st.dtype == torch.float32
+    assert _rel(jy, y) < 2e-5 and _rel(jst, st) < 2e-5
+
+
+def test_ssd_scan_asserts_divisible_chunks():
+    _, ins = _both(_ssd_np(3, s=96), "float32")
+    with pytest.raises(AssertionError, match="not divisible"):
+        ssd.ssd_scan(*ins, chunk=64)
+
+
+@pytest.mark.parametrize("s,chunk", SWEEP[:2])
+def test_ssd_scan_grads_match_jax(s, chunk):
+    arrs = _ssd_np(4 + s, s=s)
+    dy = np.random.default_rng(5).standard_normal(arrs[0].shape).astype(np.float32)
+    jins, ins = _both(arrs, "float32")
+    jgrads = _jit(lambda g, *a: jax.vjp(lambda *b: jops._ssd_jnp(*b, chunk), *a)[1](g),
+                  jnp.asarray(dy), *jins)
+    grads = ssd.ssd_scan_bwd_plain(*ins, torch.from_numpy(dy), chunk=chunk)
+    for name, jg, g, t in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), jgrads, grads, ins):
+        assert g.dtype == t.dtype and g.shape == t.shape, name
+        _close(jg, g)
+
+
+def test_ssd_scan_keeps_the_log_space_mask():
+    """A decay strong enough that exp(+segment sum) overflows: the masked
+    gates stay finite, and so do the gradients."""
+    arrs = list(_ssd_np(6, s=64))
+    arrs[1] = np.full_like(arrs[1], 4.0)               # dt
+    arrs[2] = np.full_like(arrs[2], -16.0)             # A
+    _, ins = _both(arrs, "float32")
+    ins = [t.requires_grad_(True) for t in ins]
+    ssd.ssd_scan(*ins, chunk=64).sum().backward()
+    assert all(torch.isfinite(t.grad).all() for t in ins)
+
+
+# --------------------------------------------------- flash attention backward
+@pytest.mark.parametrize("B,S,H,K,D", [(1, 64, 4, 4, 32), (2, 96, 8, 2, 64),
+                                       (1, 80, 4, 1, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_plain_matches_jax_grad(B, S, H, K, D, causal):
+    rng = np.random.default_rng(B * S + H)
+    q, k, v, do = (rng.standard_normal(sh).astype(np.float32)
+                   for sh in ((B, S, H, D), (B, S, K, D), (B, S, K, D), (B, S, H, D)))
+    jgrads = _jit(lambda g, *a: jax.vjp(
+        lambda *b: jref.naive_attention(*b, causal=causal), *a)[1](g),
+        *(jnp.asarray(a) for a in (do, q, k, v)))
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    grads = fa.flash_attention_bwd_plain(*t, torch.from_numpy(do), causal=causal)
+    for jg, g in zip(jgrads, grads):
+        _close(jg, g)
+    # and autograd through the wrapper's CPU path gives the same
+    ts = [a.clone().requires_grad_(True) for a in t]
+    ops.attention(*ts, causal=causal).backward(torch.from_numpy(do))
+    for jg, a in zip(jgrads, ts):
+        _close(jg, a.grad)
+
+
+# ------------------------------------------------------------------ Mamba-2
+@pytest.fixture(scope="module")
+def zamba():
+    """Reduced zamba2 and one Mamba-2 layer's params, JAX-initialised."""
+    jcfg, cfg = jreduced("zamba2_1p2b"), reduced("zamba2_1p2b")
+    jlp = _jit(lambda key: jssm.init_mamba2(key, jcfg), jax.random.PRNGKey(0))
+    return jcfg, cfg, jlp, {k: torch.from_numpy(np.array(v)) for k, v in jlp.items()}
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_causal_conv_matches_jax(with_state):
+    rng = np.random.default_rng(7)
+    x, w, b = (rng.standard_normal(sh).astype(np.float32) for sh in ((2, 9, 6), (4, 6), (6,)))
+    st = rng.standard_normal((2, 3, 6)).astype(np.float32) if with_state else None
+    jy, jst = _jit(lambda *a: jssm._causal_conv(*a, None if st is None else jnp.asarray(st)),
+                   jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    y, tst = ssm._causal_conv(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+                              None if st is None else torch.from_numpy(st))
+    _close(jy, y)
+    _close(jst, tst)
+
+
+def test_mamba2_fwd_matches_jax(zamba):
+    jcfg, cfg, jlp, tlp = zamba
+    x = np.random.default_rng(8).standard_normal((2, 64, cfg.d_model)).astype(np.float32)
+    jy, _ = _jit(lambda p, a: jssm.mamba2_fwd(p, a, jcfg), jlp, jnp.asarray(x))
+    y, st = ssm.mamba2_fwd(tlp, torch.from_numpy(x), cfg)
+    assert st is None
+    _close(jy, y)
+
+
+def test_mamba2_recurrent_branches_raise(zamba):
+    _, cfg, _, tlp = zamba
+    x = torch.zeros(1, 1, cfg.d_model)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        ssm.mamba2_fwd(tlp, x, cfg, return_state=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        ssm.mamba2_fwd(tlp, x, cfg, state=object())
+
+
+# ------------------------------------------------------------- the two repairs
+def test_check_inputs_takes_a_dtype_per_argument():
+    x = torch.zeros(2, 8, dtype=torch.bfloat16)
+    dt = torch.zeros(2, 8)
+    assert _build.check_inputs("k", x, (dt, torch.float32), x) == 1
+    assert _build.check_inputs("k", dt, dt) == 0
+    with pytest.raises(ValueError, match="expected"):
+        _build.check_inputs("k", x, dt)                      # a bare f32 beside bf16
+    with pytest.raises(ValueError, match="expected"):
+        _build.check_inputs("k", x, (x, torch.float32))      # a declared dtype not met
+    with pytest.raises(TypeError, match="not supported"):
+        _build.check_inputs("k", torch.zeros(2, dtype=torch.float16))
+
+
+def test_from_jax_params_keeps_each_leafs_dtype():
+    """Under bf16 params the Mamba-2 a_log, d_skip and dt_bias stay f32, as
+    `init_params` and the reference keep them."""
+    jcfg = jreduced("zamba2_1p2b").with_(param_dtype="bfloat16")
+    cfg = reduced("zamba2_1p2b").with_(param_dtype="bfloat16")
+    jp = _jit(lambda key: jmodel.init_params(key, jcfg), jax.random.PRNGKey(1))
+    tp = from_jax_params(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    meta = init_params(cfg, device="meta")
+    got = jax.tree.map(lambda t: t.dtype, tp)
+    assert got == jax.tree.map(lambda t: t.dtype, meta)
+    for key in ("a_log", "d_skip", "dt_bias"):
+        assert got["layers"][key] == torch.float32
+        assert jp["layers"][key].dtype == jnp.float32
+        assert np.array_equal(tp["layers"][key].numpy(), np.asarray(jp["layers"][key]))
+    assert got["layers"]["w_x"] == torch.bfloat16
+    assert got["shared_attn"]["attn"]["wq"] == torch.bfloat16
