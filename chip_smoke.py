@@ -9,7 +9,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                 device name; no CUDA device is an error.
   2. build   -- every hand-written kernel from src/repro_torch/kernels/csrc
                 with nvcc, one process per source, printing ptxas' registers
-                / shared memory / spills.
+                / shared memory / spills; then `cuobjdump -sass` of each
+                library, printing per kernel function its HGMMA, HMMA,
+                UTMALDG and FFMA instructions, and failing if the bf16
+                attention forward lacks HGMMA or UTMALDG or either bf16
+                attention backward kernel lacks HGMMA / HMMA.
   3. kernels -- each kernel against its plain torch version on the same
                 inputs, in bf16 and f32: the attention kernels at the serving
                 shapes (llama3-8b: H=32, K=8, D=128), at zamba2-1.2b's shared
@@ -34,7 +38,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                 are zeroed just before and read just after.
   6. train parity -- reduced zamba2 in f32 (TF32 off), the same seeded
                 params stepped once on the card (kernels) and on the CPU
-                (plain versions): loss, grad norm and params within 1e-4.
+                (plain versions): loss, grad norm and params within 1e-4;
+                then the same step in bf16, which runs the tensor-core
+                attention kernels through the model's autograd: loss and
+                grad norm within 2e-2 relative (the kernels round P and dS
+                to bf16 for their tensor-core products; the plain versions
+                keep them in f32).
   7. train   -- `repro_torch.launch.train.main` at zamba2-1.2b's full
                 widths (38 layers, bf16, remat full, 4 microbatches), 3 steps
                 of 8 x 2048 tokens; the launch counts are zeroed just before
@@ -80,6 +89,30 @@ def device_info(torch) -> str:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
           f"count {torch.cuda.device_count()}")
     return smi
+
+
+# ----------------------------------------------------------------- 2. build
+# Kernel functions (by a part of their mangled name) that must run on the
+# tensor cores, with the instructions each must contain (any one of a group).
+TENSOR_CORE_KERNELS = {
+    "flash_attention": {"fwd_sm90": (("HGMMA",), ("UTMALDG",))},
+    "flash_attention_bwd": {"dq_sm90": (("HGMMA", "HMMA"),),
+                            "dkv_sm90": (("HGMMA", "HMMA"),)},
+}
+
+
+def check_tensor_cores(sass: dict) -> None:
+    """sass: library name -> `_build.sass_counts` of it.  Raises unless every
+    kernel of TENSOR_CORE_KERNELS exists and has each required instruction."""
+    for lib, kernels in TENSOR_CORE_KERNELS.items():
+        for marker, groups in kernels.items():
+            fns = {fn: c for fn, c in sass[lib].items() if marker in fn}
+            if not fns:
+                raise AssertionError(f"{lib}: no kernel function named *{marker}*")
+            for fn, c in fns.items():
+                for group in groups:
+                    if not any(c[op] for op in group):
+                        raise AssertionError(f"{lib}: {fn} has no {' / '.join(group)}: {c}")
 
 
 # --------------------------------------------------------------- 3. kernels
@@ -431,6 +464,23 @@ def train_parity(torch):
     if not worst <= 1e-4:
         raise AssertionError(f"reduced zamba2 train step differs cuda vs cpu by {worst} > 1e-4")
 
+    # bf16: the tensor-core attention kernels round P and dS to bf16 before
+    # their products (the plain versions keep f32), and the bf16 step rounds
+    # every activation; 2e-2 relative on the loss and the grad norm
+    cfg = cfg.with_(param_dtype="bfloat16", compute_dtype="bfloat16")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = _to(init_params(cfg, seed=0, device="cpu"), dev)
+        _, m = make_train_step(cfg, opt)(make_train_state(params, opt),
+                                         synthetic_batch(cfg, 2, 64, device=dev))
+        out[dev] = {k: float(v) for k, v in m.items()}
+    mc, mg = out["cpu"], out["cuda"]
+    worst = max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("loss", "grad_norm"))
+    print(json.dumps({"train_parity_bf16": {"cpu": mc, "cuda": mg, "max_rel_err": worst}}))
+    if not worst <= 2e-2:
+        raise AssertionError(f"bf16 reduced zamba2 train step differs cuda vs cpu by "
+                             f"{worst} > 2e-2 relative")
+
 
 # ----------------------------------------------------------------- 7. train
 def full_width_train(torch, fa, ssd):
@@ -477,13 +527,18 @@ def main() -> int:
 
     phase("2. build")
     t0 = time.perf_counter()
-    logs = _build.build(["flash_attention", "flash_attention_bwd", "flash_decode",
-                         "ssd_scan"])
+    sources = ["flash_attention", "flash_attention_bwd", "flash_decode", "ssd_scan"]
+    logs = _build.build(sources)
     print(f"built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f}s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "registers", "spill", "Performance")):
                 print(f"  {name}: {line.strip()}")
+    sass = {name: _build.sass_counts(name) for name in sources}
+    for name, fns in sass.items():
+        for fn, counts in fns.items():
+            print(f"  {name}: {fn} {counts}")
+    check_tensor_cores(sass)
 
     phase("3. kernels vs plain")
     rows = kernel_cases(torch, F, fa, fd)
@@ -495,7 +550,7 @@ def main() -> int:
     phase("5. full-width llama3-8b serve (bf16, 32 layers)")
     serve_launches = full_width_serve(torch, fa, fd)
 
-    phase("6. train parity (reduced zamba2, f32, cuda vs cpu)")
+    phase("6. train parity (reduced zamba2, f32 and bf16, cuda vs cpu)")
     train_parity(torch)
 
     phase("7. full-width zamba2-1.2b train (bf16, 38 layers, 3 steps)")

@@ -94,6 +94,40 @@ def load(name: str, symbol: str, argtypes: Sequence) -> Callable[..., int]:
     return fn
 
 
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "FFMA")  # tensor-core, TMA and SIMT f32 instructions
+
+
+def parse_sass(text: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel function of a `cuobjdump -sass` listing, how many of its
+    instructions have each opcode in SASS_OPS (modifiers and predicates
+    ignored: `@!P0 HGMMA.64x64x16.F32.BF16 ...` counts as HGMMA)."""
+    counts: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            current = counts.setdefault(line.split(":", 1)[1].strip(),
+                                        dict.fromkeys(SASS_OPS, 0))
+        elif current is not None and line.startswith("/*") and "*/" in line:
+            words = line.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words:
+                op = words[0].split(".", 1)[0]
+                if op in current:
+                    current[op] += 1
+    return counts
+
+
+def sass_counts(name: str) -> Dict[str, Dict[str, int]]:
+    """`parse_sass` of the built library for csrc/<name>.cu, disassembled by
+    the cuobjdump beside nvcc."""
+    tool = Path(nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(library_path(name))], check=True,
+                         capture_output=True, text=True).stdout
+    return parse_sass(out)
+
+
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DtypeCode
 
 

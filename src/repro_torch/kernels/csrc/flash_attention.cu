@@ -8,24 +8,44 @@
 // What bounds it on the H100: causal attention does about S/2 FLOP per byte
 // of Q, K, V and O in bf16 (D = 128).  At the serving shapes (S = 384..512)
 // that is 150..205 FLOP/byte, just under the 295 FLOP/byte ridge of the
-// tensor cores, so by the card's peaks the bytes bound it (25 us at B = 8,
-// S = 512, H = 32); from S of about 600 the operations do.  This kernel
-// multiplies on the SIMT f32 pipe (67 TFLOP/s), not the tensor cores, so
-// its own limit is its operations: 257 us at those shapes.
+// tensor cores, so the bytes bound it (25 us at B = 8, S = 512, H = 32);
+// from S of about 600 the operations do (35 us at the zamba2 block's
+// B = 2, S = 2048, H = 32, D = 64).  Both bounds assume the tensor cores.
 //
-// What the design does about it:
-//   * one CTA per (64-row query tile, query head, batch); the heaviest causal
-//     tiles are scheduled first, since blocks run in no order on 132 SMs;
-//   * an in-CTA loop over 64-row K/V tiles that stops at the causal diagonal,
-//     so fully masked tiles cost neither bytes nor operations;
-//   * Q, K and V tiles are widened to f32 in shared memory with 16-byte
-//     loads; each K/V element is read from device memory once per CTA;
-//   * each thread owns a 4 x 4 block of the score tile and a 4 x D/16 block
-//     of the f32 accumulator, with padded shared rows (no bank conflicts);
-//     the 16 threads that share a row reduce its max and sum by shuffles;
-//   * ragged tails (any Sq, Skv) are masked, never asserted.
-// Tensor-core products (mma.sync / wgmma) and TMA are later work.
+// bfloat16 (every main path), `fwd_sm90`:
+//   * a persistent grid, one CTA per SM, each walking (128-row query tile,
+//     query head, batch) tiles heaviest first; a CTA is a producer
+//     warpgroup, of which one thread issues TMA loads, and two consumer
+//     warpgroups of 64 query rows each; setmaxnreg gives the consumers 240
+//     registers a thread and leaves the producer 24;
+//   * the producer loads a tile's Q, then streams 128-row K/V tiles into a
+//     shared-memory ring (2 stages at D = 128, 3 below; "full" / "empty"
+//     mbarriers per stage), and loads the next tile's Q and K/V as soon as
+//     the consumers release them, so copies overlap the arithmetic and one
+//     tile's epilogue; TMA writes each tile with the 128-byte swizzle
+//     (64-byte for D = 32) that the wgmma descriptors read, and zero-fills
+//     rows past S;
+//   * S = Q K^T is wgmma (m64n128k16) with both operands in shared memory,
+//     K-major; the online softmax runs on the accumulator fragment in
+//     registers (row max and sum over the 4 lanes of a row, exp2 with
+//     scale * log2(e) folded in, f32 m and l); P is rounded to bf16 in
+//     registers and is the register A operand of O += P V, whose
+//     accumulator layout is the A layout of the next product; V is the
+//     MN-major B operand;
+//   * K/V tile j issues S_j together with P_{j-1} V_{j-1}, so the softmax
+//     of tile j overlaps the product of tile j - 1 (no wgmma is issued
+//     under a branch: ptxas would serialize them all);
+//   * the loop stops at the causal diagonal and only edge tiles (diagonal
+//     or past Skv) are masked;
+//   * a row with no key writes O = 0 and lse = +inf.
+// float32 keeps the SIMT kernel below (`flash_attention_kernel`): its
+// callers hold it at 1e-4 of the f32 plain version, which TF32 tensor-core
+// products (10-bit mantissa) cannot meet, and no main path runs f32 at
+// full width.  It widens tiles into shared f32 and multiplies on the FMA
+// pipe: each thread owns a 4 x 4 block of the score tile and a 4 x D/16
+// block of the accumulator; its limit is the f32 SIMT peak (67 TFLOP/s).
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace repro_torch {
 namespace {
@@ -176,16 +196,261 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void* o, float* lse,
-                       int B, int Sq, int Skv, int H, int K, int causal, float scale,
-                       cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, stream);
-    default: return cudaErrorInvalidValue;
+// ------------------------------------------------ bfloat16: wgmma + TMA
+namespace tc {
+
+constexpr int kBQ = 128;       // query rows per tile: 64 per consumer warpgroup
+constexpr int kBKV = 128;      // key/value rows per ring stage
+constexpr int kThreads = 384;  // producer warpgroup + 2 consumer warpgroups
+
+template <int D>
+struct Smem {  // Q | ring of (K, V) stages, each tile 1024-byte aligned
+  using T = sm90::Tile<D>;
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr uint32_t kQ = T::bytes(kBQ), kKV = T::bytes(kBKV);
+  static constexpr uint32_t kQSub = T::sub_bytes(kBQ), kKVSub = T::sub_bytes(kBKV);
+  static constexpr size_t kBytes = 1024 + kQ + 2 * kStages * kKV;  // + alignment slack
+};
+
+// The tiles of one launch, heaviest causal tiles first: tile t is query
+// tile n_qt - 1 - t / (H B) of head (t % (H B)) % H and batch (t % (H B)) / H.
+struct Tiles {
+  int n_qt, H, B, Sq, Skv, causal;
+  __device__ int count() const { return n_qt * H * B; }
+  __device__ void at(int t, int& q0, int& h, int& b, int& n_kv) const {
+    const int hb = H * B, r = t % hb;
+    q0 = (n_qt - 1 - t / hb) * kBQ;
+    h = r % H;
+    b = r / H;
+    int kv_end = Skv;  // the loop stops at the causal diagonal
+    if (causal) kv_end = min(Skv, max(0, min(q0 + kBQ, Sq) + Skv - Sq));
+    n_kv = (kv_end + kBKV - 1) / kBKV;
   }
+};
+
+// The online softmax of one (64 x N) score tile in its accumulator fragment
+// (rows row0, row0 + 8; keys t0 + 8 jj + 2 tq + (0, 1)): masks the edge
+// tiles (past Skv, or past some row's diagonal), updates the row max m and
+// this lane's part of the row sum l, leaves exp(scale (s - m)) in s and
+// the factor for the old accumulator in alpha.
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N / 2], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int t0, int row0, int wrow,
+                                             int Skv, int causal, int shift, int tq, float sl2) {
+  if (t0 + N > Skv || (causal && t0 + N - 1 > wrow + shift)) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int key = t0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+      if (key >= Skv || (causal && key > row0 + 8 * ((i >> 1) & 1) + shift)) s[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY}, nb[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    const float base = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet
+    alpha[r] = sm90::ex2((m[r] - base) * sl2);
+    nb[r] = -base * sl2;
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    s[i] = sm90::ex2(fmaf(s[i], sl2, nb[(i >> 1) & 1]));
+    rs[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+}
+
+// Persistent: each CTA walks tiles blockIdx.x, blockIdx.x + gridDim.x, ...,
+// so the producer loads the next tile's Q and K/V while the consumers
+// finish this one.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+         const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+         float* __restrict__ lse, Tiles tiles, int K, float scale) {
+  using namespace sm90;
+  using L = Smem<D>;
+  constexpr int kS = L::kStages, kRB = Tile<D>::kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t q_full, q_empty, full[kS], empty[kS];
+  uint8_t* Qs = align1024(smem_raw);
+  uint8_t* KV = Qs + L::kQ;  // stage s: K at KV + 2 s kKV, V after it
+  const int H = tiles.H, Sq = tiles.Sq, Skv = tiles.Skv, causal = tiles.causal;
+  const int shift = Skv - Sq;  // query i sits at key position i + shift
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(&q_full, 1);
+    mbar_init(&q_empty, 2 * 128);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);  // every consumer thread releases a stage
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer warpgroup: one thread issues every load
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      int it = 0, n = 0;  // K/V stages and tiles loaded so far
+      for (int t = blockIdx.x; t < tiles.count(); t += gridDim.x, ++n) {
+        int q0, h, b, n_kv;
+        tiles.at(t, q0, h, b, n_kv);
+        const int kh = h / (H / K);
+        mbar_wait(&q_empty, (n & 1) ^ 1);  // the consumers are done with the last Q
+        mbar_arrive_expect_tx(&q_full, L::kQ);
+        tma_tile<D>(Qs, L::kQSub, &tm_q, &q_full, h, q0, b);
+        for (int j = 0; j < n_kv; ++j, ++it) {
+          const int st = it % kS;
+          mbar_wait(&empty[st], ((it / kS) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[st], 2 * L::kKV);
+          uint8_t* Ks = KV + 2 * st * L::kKV;
+          tma_tile<D>(Ks, L::kKVSub, &tm_k, &full[st], kh, j * kBKV, b);
+          tma_tile<D>(Ks + L::kKV, L::kKVSub, &tm_v, &full[st], kh, j * kBKV, b);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int c = tid / 128 - 1;  // consumer warpgroup: tile rows 64 c .. 64 c + 63
+  const int lt = tid % 128, g = (lt % 32) / 4, tq = lt % 4;
+  const int roff = 64 * c + 16 * (lt / 32) + g;  // this thread's rows: q0 + roff (+ 8)
+  const float sl2 = scale * kLog2e;
+  const uint8_t* Qw = Qs + 64 * c * kRB;
+  auto Kst = [&](int it) { return KV + 2 * (it % kS) * L::kKV; };  // K of stage it; V after it
+
+
+  int it = 0, n = 0;
+  for (int t = blockIdx.x; t < tiles.count(); t += gridDim.x, ++n) {
+    int q0, h, b, n_kv;
+    tiles.at(t, q0, h, b, n_kv);
+    const int row0 = q0 + roff, wrow = q0 + 64 * c;
+
+    float acc[D / 2], s[kBKV / 2];
+    uint32_t p[kBKV / 4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    mbar_wait(&q_full, n & 1);
+    if (n_kv == 0) {
+      mbar_arrive(&q_empty);
+    } else {
+      // Tile j >= 1 issues S_j = Q K_j^T together with O += P_{j-1} V_{j-1},
+      // so the softmax of S_j overlaps the P V product of the tile before;
+      // tile 0 issues S_0 alone and the last P V follows the loop.
+      mbar_wait(&full[it % kS], (it / kS) & 1);
+      wgmma_fence();
+      mma_abt<D, kBKV>(s, Qw, L::kQSub, Kst(it), L::kKVSub);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (n_kv == 1) mbar_arrive(&q_empty);  // the last read of Q is done
+      softmax_tile<kBKV>(s, m, l, alpha, 0, row0, wrow, Skv, causal, shift, tq, sl2);
+      pack_a<kBKV>(p, s);
+      for (int j = 1; j < n_kv; ++j) {
+        ++it;
+        mbar_wait(&full[it % kS], (it / kS) & 1);
+          wgmma_fence();  // p and acc were written outside wgmma
+        mma_abt<D, kBKV>(s, Qw, L::kQSub, Kst(it), L::kKVSub);
+        wgmma_commit();
+        mma_pv<D, kBKV / 16>(acc, p, Kst(it - 1) + L::kKV, L::kKVSub);
+        wgmma_commit();
+          wgmma_wait<1>();  // S_j is in; P_{j-1} V_{j-1} may still run
+        fence_regs(s);
+        if (j == n_kv - 1) mbar_arrive(&q_empty);
+        softmax_tile<kBKV>(s, m, l, alpha, j * kBKV, row0, wrow, Skv, causal, shift, tq, sl2);
+        wgmma_wait<0>();  // P_{j-1} V_{j-1} is in: its stage is free
+        fence_regs(acc);
+        fence_regs(p);
+        mbar_arrive(&empty[(it - 1) % kS]);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        pack_a<kBKV>(p, s);
+      }
+      wgmma_fence();
+      mma_pv<D, kBKV / 16>(acc, p, Kst(it) + L::kKV, L::kKVSub);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[it % kS]);
+      ++it;
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int qi = row0 + 8 * r;
+      if (qi >= Sq) continue;
+      const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+      __nv_bfloat16* orow = o + (((size_t)b * Sq + qi) * H + h) * D;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj + 2 * tq) =
+            __floats2bfloat162_rn(acc[4 * jj + 2 * r] * inv, acc[4 * jj + 2 * r + 1] * inv);
+      // per-row logsumexp of the scaled scores, for the backward; a row with
+      // no key gets +inf, so exp(s - lse) is 0 there
+      if (lse && tq == 0)
+        lse[((size_t)b * H + h) * Sq + qi] = l[r] > 0.f ? m[r] * scale + logf(l[r]) : INFINITY;
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int Sq, int Skv, int H, int K, int causal, float scale, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!sm90::make_map<D>(&tm_q, q, B, Sq, H, kBQ) ||
+      !sm90::make_map<D>(&tm_k, k, B, Skv, K, kBKV) ||
+      !sm90::make_map<D>(&tm_v, v, B, Skv, K, kBKV))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = Smem<D>::kBytes;
+  auto kern = fwd_sm90<D>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const Tiles tiles{(Sq + kBQ - 1) / kBQ, H, B, Sq, Skv, causal};
+  const int n_tiles = tiles.n_qt * H * B;
+  kern<<<n_tiles < sms ? n_tiles : sms, kThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, tiles, K, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+cudaError_t dispatch_d(int D, int dtype, const void* q, const void* k, const void* v, void* o,
+                       float* lse, int B, int Sq, int Skv, int H, int K, int causal, float scale,
+                       cudaStream_t s) {
+  if (dtype == kFloat32) {
+    switch (D) {
+      case 32: return launch<float, 32>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, s);
+      case 64: return launch<float, 64>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, s);
+      case 128: return launch<float, 128>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (dtype == kBFloat16) {
+    switch (D) {
+      case 32: return tc::launch<32>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, s);
+      case 64: return tc::launch<64>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, s);
+      case 128: return tc::launch<128>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -202,13 +467,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   using namespace repro_torch;
   if (B <= 0 || Sq <= 0 || H <= 0 || K <= 0 || H % K != 0 || Skv < 0)
     return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  switch (dtype) {
-    case kFloat32:
-      return dispatch_d<float>(D, q, k, v, o, l, B, Sq, Skv, H, K, causal, scale, s);
-    case kBFloat16:
-      return dispatch_d<__nv_bfloat16>(D, q, k, v, o, l, B, Sq, Skv, H, K, causal, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return dispatch_d(D, dtype, q, k, v, o, static_cast<float*>(lse), B, Sq, Skv, H, K, causal,
+                    scale, static_cast<cudaStream_t>(stream));
 }

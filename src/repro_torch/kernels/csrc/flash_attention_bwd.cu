@@ -12,22 +12,47 @@
 // What bounds it on the H100: 2.5x the forward's multiply-adds over the
 // same bytes plus dO, O, dQ, dK, dV; at the zamba2 shared block's shape
 // (B = 2, S = 2048, H = K = 32, D = 64) the operations bound it by the
-// card's bf16 peak.  These kernels multiply on the SIMT f32 pipe, so
-// their own limit is their operations.
+// card's bf16 tensor-core peak.
 //
-// What the design does about it:
-//   * two kernels, so no thread block needs atomics: dQ one CTA per
-//     (64-row query tile, query head, batch), looping over K/V tiles up to
-//     the causal diagonal (it also computes Delta and writes it for the
-//     second); dK/dV one CTA per (64-row key tile, kv head, batch), looping
-//     over the G query heads of its group and the query tiles from the
-//     diagonal down, so the GQA sum over heads happens in registers;
-//   * P is recomputed from lse, never stored (no S x S buffer);
-//   * masked and ragged positions get P = 0 by construction;
-//   * each thread owns a 4 x 4 block of every 64 x 64 score tile and a
-//     4 x D/16 block of its accumulators; shared rows are padded.
-// Tensor-core products (mma.sync / wgmma) and TMA are later work.
+// Both dtypes keep the split into two kernels, so no thread block needs
+// atomics and a train step is deterministic: a dQ kernel per query tile
+// (it also computes Delta and writes it for the second) and a dK/dV kernel
+// per key tile, looping over the G query heads of its group and the query
+// tiles from the diagonal down, so the GQA sum over heads stays in
+// registers.  P is recomputed from lse, never stored.  Together they run 7
+// products where 5 would do (S and dP in both kernels): the price of having
+// no atomics.
+//
+// bfloat16 (every main path), `dq_sm90` and `dkv_sm90`: wgmma for all
+// seven products and TMA for every tile, as in the forward -- a producer
+// warpgroup (setmaxnreg 24) and two consumer warpgroups (240) of 64 rows
+// each, a 2-stage mbarrier ring of 64-row tiles:
+//   * dQ, per 128-row query tile: Q and dO are loaded once, K/V streamed;
+//     S = Q K^T and dP = dO V^T with both operands in shared memory; P and
+//     dS = P (dP - Delta) on the accumulator fragments in registers; dS,
+//     rounded to bf16 in registers, is the A operand of dQ += dS K with K
+//     as the MN-major B operand;
+//   * dK/dV, per 128-row key tile: K and V are loaded once; Q, dO and each
+//     query row's lse and Delta are streamed (the producer warp copies the
+//     two f32 vectors into the ring stage beside the TMA tiles).  It works
+//     in the transposed form, so no shared tile is ever transposed:
+//     S^T = K Q^T and dP^T = V dO^T -> P^T and dS^T in registers ->
+//     dV += P^T dO and dK += dS^T Q (dO and Q MN-major).
+//   Registers bound the design: at D = 128 the dK and dV accumulators take
+//   128 registers a thread of a 64-row warpgroup tile, S^T and dP^T 64
+//   more, P^T and dS^T in bf16 32 more, so the D = 128 dK/dV kernel spills
+//   and ptxas serializes its wgmma.  Issuing one tile's products with the
+//   next tile's (as the forward does) needs more registers still, and
+//   measured slower at every head dim, so each step's products wait for its
+//   elementwise work.
+// float32 keeps the SIMT kernels below (`dq_kernel`, `dkv_kernel`): their
+// callers hold them at 1e-4 of the f32 plain version, which TF32 products
+// cannot meet, and no main path runs f32 at full width.  Each thread owns
+// a 4 x 4 block of every 64 x 64 score tile and a 4 x D/16 block of its
+// accumulators, on the f32 FMA pipe; masked and ragged positions get P = 0
+// by construction.
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace repro_torch {
 namespace {
@@ -286,23 +311,364 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, const void* o,
-                       const void* dout, const float* lse, void* dq, void* dk, void* dv,
-                       float* delta, int B, int Sq, int Skv, int H, int K, int causal,
-                       float scale, cudaStream_t s) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, Sq, Skv, H, K, causal,
-                           scale, s);
-    case 64:
-      return launch<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, Sq, Skv, H, K, causal,
-                           scale, s);
-    case 128:
-      return launch<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, Sq, Skv, H, K, causal,
-                            scale, s);
-    default: return cudaErrorInvalidValue;
+// ------------------------------------------------ bfloat16: wgmma + TMA
+namespace tc {
+
+constexpr int kBig = 128;      // rows of the tile a CTA owns: 64 per consumer warpgroup
+constexpr int kStep = 64;      // rows of a streamed ring stage
+constexpr int kThreads = 384;  // producer warpgroup + 2 consumer warpgroups
+
+template <int D>
+struct Smem {  // A | B (kBig rows each) | ring: 2 x (C | E) (kStep rows each)
+  using T = sm90::Tile<D>;
+  static constexpr uint32_t kBigT = T::bytes(kBig), kStepT = T::bytes(kStep);
+  static constexpr uint32_t kBigSub = T::sub_bytes(kBig), kStepSub = T::sub_bytes(kStep);
+  static constexpr size_t kBytes = 1024 + 2 * kBigT + 4 * kStepT;  // + alignment slack
+};
+
+__device__ __forceinline__ void init_barriers(uint64_t* once, uint64_t* full, uint64_t* empty,
+                                              uint32_t full_count) {
+  using namespace sm90;
+  if (threadIdx.x == 0) {
+    mbar_init(once, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], full_count);
+      mbar_init(&empty[s], 2 * 128);  // every consumer thread releases the stage
+    }
+    fence_barrier_init();
   }
+  __syncthreads();
+}
+
+// dQ per (128-row query tile, query head, batch), and Delta on the way.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+        const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+        const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+        const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
+        int Sq, int Skv, int H, int K, int causal, float scale) {
+  using namespace sm90;
+  using L = Smem<D>;
+  constexpr int kRB = Tile<D>::kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar_q, full[2], empty[2];
+  uint8_t* Qs = align1024(smem_raw);
+  uint8_t* dOs = Qs + L::kBigT;
+  uint8_t* KV = dOs + L::kBigT;  // stage s: K at KV + 2 s kStepT, V after it
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBig;  // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z, kh = h / (H / K);
+  const int shift = Skv - Sq;
+  int kv_end = Skv;
+  if (causal) kv_end = min(Skv, max(0, min(q0 + kBig, Sq) + shift));
+  const int n_kv = (kv_end + kStep - 1) / kStep;
+  const int tid = threadIdx.x;
+  init_barriers(&bar_q, full, empty, 1);
+
+  if (tid < 128) {  // producer warpgroup: one thread issues every load
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(&bar_q, 2 * L::kBigT);
+      tma_tile<D>(Qs, L::kBigSub, &tm_q, &bar_q, h, q0, b);
+      tma_tile<D>(dOs, L::kBigSub, &tm_do, &bar_q, h, q0, b);
+      for (int it = 0; it < n_kv; ++it) {
+        const int st = it & 1;
+        mbar_wait(&empty[st], ((it >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], 2 * L::kStepT);
+        uint8_t* Ks = KV + 2 * st * L::kStepT;
+        tma_tile<D>(Ks, L::kStepSub, &tm_k, &full[st], kh, it * kStep, b);
+        tma_tile<D>(Ks + L::kStepT, L::kStepSub, &tm_v, &full[st], kh, it * kStep, b);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int c = tid / 128 - 1;
+  const int lt = tid % 128, g = (lt % 32) / 4, tq = lt % 4;
+  const int wrow = q0 + 64 * c;
+  const int row0 = wrow + 16 * (lt / 32) + g;  // this thread's rows: row0, row0 + 8
+  const float sl2 = scale * kLog2e;
+  const size_t hrow = ((size_t)b * H + h) * Sq;
+
+  // Delta = rowsum(dO * O) and lse (in log2 units) of this thread's two rows;
+  // the 4 lanes of a row each sum a quarter of it.  Rows past Sq get
+  // lse = +inf, so P = 0 there.
+  float dl[2], nl2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    float sum = 0.f;
+    if (qi < Sq) {
+      const size_t off = (((size_t)b * Sq + qi) * H + h) * D + tq * (D / 4);
+#pragma unroll
+      for (int i = 0; i < D / 4; i += 8) {
+        float ov[8], dv[8];
+        load_vec<8>(o + off + i, ov);
+        load_vec<8>(dout + off + i, dv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sum = fmaf(ov[e], dv[e], sum);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    dl[r] = sum;
+    nl2[r] = qi < Sq ? -lse[hrow + qi] * kLog2e : -INFINITY;
+    if (qi < Sq && tq == 0) delta[hrow + qi] = sum;
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(&bar_q, 0);
+  const uint8_t* Qw = Qs + 64 * c * kRB;
+  const uint8_t* dOw = dOs + 64 * c * kRB;
+  for (int it = 0; it < n_kv; ++it) {
+    const int st = it & 1, t0 = it * kStep;
+    const uint8_t* Ks = KV + 2 * st * L::kStepT;
+    mbar_wait(&full[st], (it >> 1) & 1);
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+    mma_abt<D, kStep>(s, Qw, L::kBigSub, Ks, L::kStepSub);  // S = Q K^T
+    wgmma_commit();
+    mma_abt<D, kStep>(dp, dOw, L::kBigSub, Ks + L::kStepT, L::kStepSub);  // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+    const bool edge = t0 + kStep > Skv || (causal && t0 + kStep - 1 > wrow + shift);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = t0 + 8 * j + 2 * tq + (e & 1);
+        const bool ok = !edge || (key < Skv && (!causal || key <= row0 + 8 * (e >> 1) + shift));
+        s[4 * j + e] = ok ? ex2(fmaf(s[4 * j + e], sl2, nl2[e >> 1])) : 0.f;
+      }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= dp[i] - dl[(i >> 1) & 1];  // dS
+    uint32_t a[16];
+    pack_a<kStep>(a, s);
+    wgmma_fence();
+    mma_pv<D, kStep / 16>(acc, a, Ks, L::kStepSub);  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= Sq) continue;
+    __nv_bfloat16* row = dq + (((size_t)b * Sq + qi) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * tq) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+  }
+}
+
+// dK and dV per (128-row key tile, kv head, batch), summed over the G query
+// heads of the group and the query tiles from the diagonal down.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+         const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+         const float* __restrict__ lse, const float* __restrict__ delta,
+         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H,
+         int K, int causal, float scale) {
+  using namespace sm90;
+  using L = Smem<D>;
+  constexpr int kRB = Tile<D>::kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar_kv, full[2], empty[2];
+  __shared__ float nl2_s[2][kStep], dl_s[2][kStep];  // -lse log2(e) and Delta per query
+  uint8_t* Ks = align1024(smem_raw);
+  uint8_t* Vs = Ks + L::kBigT;
+  uint8_t* QD = Vs + L::kBigT;  // stage s: Q at QD + 2 s kStepT, dO after it
+
+  const int t0 = blockIdx.x * kBig;  // the first key tiles see the most queries
+  const int kh = blockIdx.y, b = blockIdx.z;
+  const int G = H / K;
+  const int shift = Skv - Sq;
+  // queries i see key t when t <= i + shift: the first tile that can
+  const int q_first = causal ? max(0, t0 - shift) / kStep * kStep : 0;
+  const int n_q = (Sq - q_first + kStep - 1) / kStep;  // query tiles per head
+  const int tid = threadIdx.x;
+  init_barriers(&bar_kv, full, empty, 32);  // the producer warp's lanes fill a stage
+
+  if (tid < 128) {  // producer warpgroup: warp 0 loads, the others idle
+    setmaxnreg_dec<24>();
+    if (tid < 32) {
+      if (tid == 0) {
+        mbar_arrive_expect_tx(&bar_kv, 2 * L::kBigT);
+        tma_tile<D>(Ks, L::kBigSub, &tm_k, &bar_kv, kh, t0, b);
+        tma_tile<D>(Vs, L::kBigSub, &tm_v, &bar_kv, kh, t0, b);
+      }
+      for (int it = 0; it < G * n_q; ++it) {  // query head kh G + it / n_q, tile it % n_q
+        const int st = it & 1, h = kh * G + it / n_q, q0 = q_first + (it % n_q) * kStep;
+        const float* lse_h = lse + ((size_t)b * H + h) * Sq;
+        const float* delta_h = delta + ((size_t)b * H + h) * Sq;
+        mbar_wait(&empty[st], ((it >> 1) & 1) ^ 1);
+        for (int i = tid; i < kStep; i += 32) {
+          const bool in = q0 + i < Sq;
+          nl2_s[st][i] = in ? -lse_h[q0 + i] * kLog2e : -INFINITY;
+          dl_s[st][i] = in ? delta_h[q0 + i] : 0.f;
+        }
+        if (tid == 0) {
+          mbar_arrive_expect_tx(&full[st], 2 * L::kStepT);  // also publishes lse, Delta
+          uint8_t* Qs = QD + 2 * st * L::kStepT;
+          tma_tile<D>(Qs, L::kStepSub, &tm_q, &full[st], h, q0, b);
+          tma_tile<D>(Qs + L::kStepT, L::kStepSub, &tm_do, &full[st], h, q0, b);
+        } else {
+          mbar_arrive(&full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int c = tid / 128 - 1;
+  const int lt = tid % 128, g = (lt % 32) / 4, tq = lt % 4;
+  const int wkey = t0 + 64 * c;                 // this warpgroup's first key
+  const int key0 = wkey + 16 * (lt / 32) + g;   // this thread's keys: key0, key0 + 8
+  const float sl2 = scale * kLog2e;
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  mbar_wait(&bar_kv, 0);
+  const uint8_t* Kw = Ks + 64 * c * kRB;
+  const uint8_t* Vw = Vs + 64 * c * kRB;
+  for (int it = 0; it < G * n_q; ++it) {
+    const int st = it & 1, q0 = q_first + (it % n_q) * kStep;
+    const uint8_t* Qs = QD + 2 * st * L::kStepT;
+    const uint8_t* dOs = Qs + L::kStepT;
+    mbar_wait(&full[st], (it >> 1) & 1);
+
+    float s[32], dp[32];  // S^T and dP^T: rows are keys, columns queries
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+    mma_abt<D, kStep>(s, Kw, L::kBigSub, Qs, L::kStepSub);  // S^T = K Q^T
+    wgmma_commit();
+    mma_abt<D, kStep>(dp, Vw, L::kBigSub, dOs, L::kStepSub);  // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    const bool edge = causal && wkey + 63 > q0 + shift;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * tq + (e & 1);
+        const bool ok = !edge || key0 + 8 * (e >> 1) <= q0 + col + shift;
+        s[4 * j + e] = ok ? ex2(fmaf(s[4 * j + e], sl2, nl2_s[st][col])) : 0.f;
+      }
+    uint32_t pa[16];
+    pack_a<kStep>(pa, s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * tq + (e & 1);
+        s[4 * j + e] *= dp[4 * j + e] - dl_s[st][col];  // dS^T
+      }
+    uint32_t da[16];
+    pack_a<kStep>(da, s);
+    wgmma_fence();
+    mma_pv<D, kStep / 16>(dva, pa, dOs, L::kStepSub);  // dV += P^T dO
+    mma_pv<D, kStep / 16>(dka, da, Qs, L::kStepSub);   // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = key0 + 8 * r;
+    if (t >= Skv) continue;
+    const size_t off = (((size_t)b * Skv + t) * K + kh) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * tq;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + col) = __floats2bfloat162_rn(
+          dka[4 * j + 2 * r] * scale, dka[4 * j + 2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + col) =
+          __floats2bfloat162_rn(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   const float* lse, void* dq, void* dk, void* dv, float* delta, int B, int Sq,
+                   int Skv, int H, int K, int causal, float scale, cudaStream_t stream) {
+  using sm90::make_map;
+  constexpr size_t smem = Smem<D>::kBytes;
+  using bf = __nv_bfloat16;
+  // the dQ kernel owns 128 query rows and streams 64 key rows; dK/dV the other way
+  CUtensorMap q_big, do_big, k_step, v_step, k_big, v_big, q_step, do_step;
+  if (!make_map<D>(&q_big, q, B, Sq, H, kBig) || !make_map<D>(&do_big, dout, B, Sq, H, kBig) ||
+      !make_map<D>(&k_step, k, B, Skv, K, kStep) || !make_map<D>(&v_step, v, B, Skv, K, kStep) ||
+      !make_map<D>(&k_big, k, B, Skv, K, kBig) || !make_map<D>(&v_big, v, B, Skv, K, kBig) ||
+      !make_map<D>(&q_step, q, B, Sq, H, kStep) || !make_map<D>(&do_step, dout, B, Sq, H, kStep))
+    return cudaErrorInvalidValue;
+  auto kq = dq_sm90<D>;
+  auto kkv = dkv_sm90<D>;
+  cudaError_t err = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kq<<<dim3((Sq + kBig - 1) / kBig, H, B), kThreads, smem, stream>>>(
+      q_big, k_step, v_step, do_big, static_cast<const bf*>(o), static_cast<const bf*>(dout),
+      lse, static_cast<bf*>(dq), delta, Sq, Skv, H, K, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kkv<<<dim3((Skv + kBig - 1) / kBig, K, B), kThreads, smem, stream>>>(
+      q_step, k_big, v_big, do_step, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv), Sq,
+      Skv, H, K, causal, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+cudaError_t dispatch_d(int D, int dtype, const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const float* lse, void* dq, void* dk,
+                       void* dv, float* delta, int B, int Sq, int Skv, int H, int K, int causal,
+                       float scale, cudaStream_t s) {
+#define REPRO_BWD_ARGS q, k, v, o, dout, lse, dq, dk, dv, delta, B, Sq, Skv, H, K, causal, scale, s
+  if (dtype == kFloat32) {
+    switch (D) {
+      case 32: return launch<float, 32>(REPRO_BWD_ARGS);
+      case 64: return launch<float, 64>(REPRO_BWD_ARGS);
+      case 128: return launch<float, 128>(REPRO_BWD_ARGS);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (dtype == kBFloat16) {
+    switch (D) {
+      case 32: return tc::launch<32>(REPRO_BWD_ARGS);
+      case 64: return tc::launch<64>(REPRO_BWD_ARGS);
+      case 128: return tc::launch<128>(REPRO_BWD_ARGS);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+#undef REPRO_BWD_ARGS
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -320,16 +686,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   using namespace repro_torch;
   if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || K <= 0 || H % K != 0)
     return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  switch (dtype) {
-    case kFloat32:
-      return dispatch_d<float>(D, q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq, Skv, H, K, causal,
-                               scale, s);
-    case kBFloat16:
-      return dispatch_d<__nv_bfloat16>(D, q, k, v, o, dout, l, dq, dk, dv, dl, B, Sq, Skv, H, K,
-                                       causal, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return dispatch_d(D, dtype, q, k, v, o, dout, static_cast<const float*>(lse), dq, dk, dv,
+                    static_cast<float*>(delta), B, Sq, Skv, H, K, causal, scale,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -1,13 +1,14 @@
 """Causal flash attention: the Hopper kernel's wrapper and its plain version.
 
 Counterpart of `repro.kernels.flash_attention.flash_attention` (a Pallas TPU
-kernel).  The forward kernel is `csrc/flash_attention.cu`: one CTA per
-(64-row query tile, query head, batch) with an f32 online softmax over
-64-row K/V tiles that stops at the causal diagonal; it also writes each
-row's logsumexp.  The backward (`csrc/flash_attention_bwd.cu`, which the
-reference lacks) is a dQ kernel and a dK/dV kernel, joined to the forward
-by a `torch.autograd.Function`.  Unlike the Pallas kernel they take any
-Sq / Skv (ragged tails are masked), so they have no block-size arguments.
+kernel).  The forward kernel is `csrc/flash_attention.cu`: an f32 online
+softmax over K/V tiles that stops at the causal diagonal, on the tensor
+cores (wgmma, TMA) in bf16 and on the SIMT pipe in f32; it also writes
+each row's logsumexp.  The backward (`csrc/flash_attention_bwd.cu`, which
+the reference lacks) is a dQ kernel and a dK/dV kernel, likewise in both
+dtypes, joined to the forward by a `torch.autograd.Function`.  Unlike the
+Pallas kernel they take any Sq / Skv (ragged tails are masked), so they
+have no block-size arguments.
 
 A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
 takes `flash_attention_plain` (and autograd through it), which the tests and

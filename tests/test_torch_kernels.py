@@ -148,3 +148,128 @@ def test_wrapper_refuses_devices_without_a_kernel():
         fa.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="no kernel"):
         fd.flash_decode(q[:, :1], q, q, 4)
+
+
+# --- the bf16 tensor-core kernels' rounding, emulated in plain torch --------
+# csrc/flash_attention*.cu round P (forward and backward) and dS (backward)
+# to bf16 before their tensor-core products, where the plain version keeps
+# f32.  Emulating exactly that on the CPU, from bf16 inputs, must stay
+# within half of the 2e-2 gate that tests/test_torch_gpu.py and chip_smoke
+# hold the kernels to, so that the gate is not met by luck.  Shapes: those
+# of test_flash_attention_kernel_vs_plain and
+# test_flash_attention_bwd_kernel_vs_plain.
+RT = 1e-2  # half of the bf16 gate
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _probs(q, k, causal, scale):
+    """f32 scores (B, H, Sq, Skv) with the end-aligned mask, GQA expanded."""
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    ke = k.repeat_interleave(H // K, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, ke) * scale
+    if causal:
+        i = torch.arange(Sq)[:, None] + (Skv - Sq)
+        s = s.masked_fill(torch.arange(Skv)[None, :] > i, float("-inf"))
+    return s
+
+
+def _fwd_rounded(q, k, v, causal, scale):
+    """The forward as the kernel rounds it: P in bf16 for P.V, l in f32."""
+    H, K = q.shape[2], k.shape[2]
+    s = _probs(q, k, causal, scale)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bhqk,bkhd->bqhd", _bf16(p), v.repeat_interleave(H // K, dim=2))
+    lse = s.amax(-1) + torch.log(p.sum(-1))
+    return _bf16(o / p.sum(-1).transpose(1, 2)[..., None]), lse
+
+
+def _bwd_rounded(q, k, v, do, causal, scale):
+    """dq, dk, dv as the kernels round them: P and dS in bf16 for their
+    products, Delta from the bf16 forward output."""
+    B, Sq, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    o, lse = _fwd_rounded(q, k, v, causal, scale)
+    p = torch.exp(_probs(q, k, causal, scale) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v.repeat_interleave(G, dim=2))
+    delta = (do * o).sum(-1).transpose(1, 2)[..., None]
+    ds = _bf16(p * (dp - delta))
+    dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds, k.repeat_interleave(G, dim=2))
+    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    dv = torch.einsum("bhqk,bqhd->bkhd", _bf16(p), do)
+    Skv = k.shape[1]
+    dk, dv = (t.reshape(B, Skv, K, G, D).sum(3) for t in (dk, dv))
+    return _bf16(dq), _bf16(dk), _bf16(dv)
+
+
+def _bf16_inputs(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [_bf16(torch.from_numpy(rng.standard_normal(s).astype(np.float32))) for s in shapes]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,D", [
+    (1, 128, 128, 4, 4, 32), (2, 256, 256, 8, 2, 64), (1, 256, 256, 4, 1, 64),
+    (1, 512, 512, 2, 2, 128), (1, 192, 192, 2, 1, 32), (2, 100, 100, 4, 2, 128),
+    (1, 64, 200, 4, 2, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_p_rounding_fits_the_forward_gate(B, Sq, Skv, H, K, D, causal):
+    q, k, v = _bf16_inputs(0, (B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D))
+    o, _ = _fwd_rounded(q, k, v, causal, D ** -0.5)
+    ref = fa.flash_attention_plain(q, k, v, causal=causal)
+    assert float((o - ref).abs().max()) < RT
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,D", [
+    (2, 256, 256, 8, 8, 64), (2, 256, 256, 8, 2, 128), (1, 192, 192, 4, 1, 32),
+    (2, 200, 200, 4, 2, 64), (1, 64, 200, 4, 2, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_p_and_ds_rounding_fits_the_backward_gate(B, Sq, Skv, H, K, D, causal):
+    q, k, v, do = _bf16_inputs(6, (B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D),
+                               (B, Sq, H, D))
+    scale = D ** -0.5
+    got = _bwd_rounded(q, k, v, do, causal, scale)
+    refs = fa.flash_attention_bwd_plain(q, k, v, do, causal=causal, scale=scale)
+    for name, g, r in zip(("dq", "dk", "dv"), got, refs):
+        rel = float((g - r).abs().max()) / float(r.abs().max())
+        assert rel < RT, (name, rel)
+
+
+SASS_EXCERPT = """
+Fatbin elf code:
+================
+arch = sm_90a
+code version = [1,7]
+
+	code for sm_90a
+		Function : _ZN11repro_torch2tc8fwd_sm90ILi64EEEvv
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                   /* 0x00000a00ff017b82 */
+                                                                            /* 0x000fe40000000800 */
+        /*0010*/                   UTMALDG.4D [UR8], [UR4] ;                /* 0x00000008040075b4 */
+        /*0020*/              @!P0 HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0 ;
+        /*0030*/                   FFMA.FTZ R0, R1, R2, R3 ;
+        /*0040*/                   HGMMA.64x64x16.F32.BF16 R24, R88, gdesc[UR8], R24, gsb0 ;
+        /*0050*/                   EXIT ;
+		..........
+
+		Function : _ZN11repro_torch9dq_kernelIfLi64EEEvv
+        /*0000*/                   FFMA R4, R5, R6, R4 ;
+        /*0010*/               @P1 FFMA R7, R5, R6, R7 ;
+        /*0020*/                   HMMA.16816.F32.BF16 R8, R12, R16, R8 ;
+        /*0030*/                   BRA 0x30;
+"""
+
+
+def test_sass_parser_counts_instructions_per_kernel():
+    from repro_torch.kernels import _build
+    counts = _build.parse_sass(SASS_EXCERPT)
+    assert counts == {
+        "_ZN11repro_torch2tc8fwd_sm90ILi64EEEvv":
+            {"HGMMA": 2, "HMMA": 0, "UTMALDG": 1, "FFMA": 1},
+        "_ZN11repro_torch9dq_kernelIfLi64EEEvv":
+            {"HGMMA": 0, "HMMA": 1, "UTMALDG": 0, "FFMA": 2},
+    }
