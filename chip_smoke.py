@@ -1,34 +1,44 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (src/repro_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase, on one card
+    python3 chip_smoke.py --kernels-only  # phases 1 and 3 alone: the kernel
+                                          # times, also from an older checkout
 
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. device  -- the card's name and power limit (nvidia-smi) and torch's
                 device name; no CUDA device is an error.
-  2. build   -- every hand-written kernel from src/repro_torch/kernels/csrc
-                with nvcc, one process per source, printing ptxas' registers
-                / shared memory / spills; then `cuobjdump -sass` of each
-                library, printing per kernel function its HGMMA, HMMA,
-                UTMALDG and FFMA instructions, and failing if the bf16
-                attention forward lacks HGMMA or UTMALDG or either bf16
-                attention backward kernel lacks HGMMA / HMMA.
+  2. build   -- every hand-written kernel source in
+                src/repro_torch/kernels/csrc with nvcc, one process per
+                source, all started together, printing ptxas' registers /
+                shared memory / spills and any "wgmma serialized" warning;
+                then `cuobjdump -sass` of each library, printing per kernel
+                function its HGMMA, HMMA, UTMALDG and FFMA instructions, and
+                failing if the bf16 attention forward lacks HGMMA or UTMALDG,
+                either bf16 attention backward kernel lacks HGMMA / HMMA, or
+                either bf16 SSD forward product kernel lacks HGMMA.
   3. kernels -- each kernel against its plain torch version on the same
                 inputs, in bf16 and f32: the attention kernels at the serving
                 shapes (llama3-8b: H=32, K=8, D=128), at zamba2-1.2b's shared
                 block (H=K=32, D=64) and at ragged / MQA / GQA shapes; the SSD
                 scan and its backward at zamba2-1.2b's widths, the reduced
-                config's and a test sweep's.  Tolerance: 1e-4 in f32 and 2e-2
+                config's and a test sweep's; decode at vlen 1, ragged, full
+                and MQA (the split-KV runs); the SSD forward at chunks 32 to
+                256 with n, p in {16, 32, 64}.  Tolerance: 1e-4 in f32 and 2e-2
                 in bf16 against the plain version computed in f32 (the
                 attention forward absolute, the SSD scan and the backward
                 kernels relative to the largest reference magnitude).  Each
-                case prints the kernel's and the plain version's time, and
-                the library call's where one exists (CUDA events, L2 flushed
-                before each launch), beside the least time the card could
-                take (bound_ms).  A backward case times the backward alone:
-                the plain version's and SDPA's backward are autograd over a
-                retained graph.
+                case prints the kernel's, the plain version's and the library
+                call's (where one exists) device time `ms` and host time
+                `host_ms` (see `Clock`), beside the least time the card could
+                take (bound_ms).  The library call is SDPA pinned to its
+                fastest backend that accepts the case, named in the row.  A
+                backward case times the backward alone: the plain version's
+                and SDPA's backward are autograd over a retained graph.
+                Then `torch.profiler`'s device time of each CUDA kernel that
+                one flash_decode call and one bf16 ssd_scan call launch, at
+                the main path's shapes (L2 flushed before each call).
   4. serve parity -- reduced llama3-8b in f32 (TF32 off), the same seeded
                 params served on the card (kernels) and on the CPU (plain
                 versions): prefill logits within 1e-4, greedy tokens equal.
@@ -56,11 +66,13 @@ Imports nothing of JAX and nothing of the JAX package `repro`.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -98,6 +110,7 @@ TENSOR_CORE_KERNELS = {
     "flash_attention": {"fwd_sm90": (("HGMMA",), ("UTMALDG",))},
     "flash_attention_bwd": {"dq_sm90": (("HGMMA", "HMMA"),),
                             "dkv_sm90": (("HGMMA", "HMMA"),)},
+    "ssd_scan_fwd": {"ssd_state_sm90": (("HGMMA",),), "ssd_scan_sm90": (("HGMMA",),)},
 }
 
 
@@ -116,22 +129,113 @@ def check_tensor_cores(sass: dict) -> None:
 
 
 # --------------------------------------------------------------- 3. kernels
-def time_ms(torch, fn, iters: int, flush) -> float:
-    """Mean device time of fn over iters launches, L2 flushed before each."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+class Clock:
+    """Times a Python call that launches device work, two ways.
+
+    `host_ms`: the wall time of the call from a synchronised device to the
+    device done with it (sync to sync), the L2 left warm: what a caller
+    waits, the wrapper's host work included.
+
+    `ms`: device time.  The L2 is flushed (a 256 MB memset), then a device
+    sleep is queued that lasts longer than the call's host time, then the
+    start event, the call and the end event.  The host has enqueued all of
+    the call before the device leaves the sleep, so the events time the
+    device's work alone, however long the wrapper's host work takes.
+    Each is the mean over `iters` calls, after 3 warm-up calls."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        torch.cuda._sleep(1000)
+        start, end = self._events()
         start.record()
-        fn()
+        torch.cuda._sleep(10_000_000)
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        self.cycles_per_ms = 1e7 / start.elapsed_time(end)
+
+    def _events(self):
+        ev = self.torch.cuda.Event
+        return ev(enable_timing=True), ev(enable_timing=True)
+
+    def __call__(self, fn, iters: int):
+        """(ms, host_ms) of fn."""
+        cuda = self.torch.cuda
+        for _ in range(3):
+            fn()
+        cuda.synchronize()
+        host = 0.0
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            cuda.synchronize()
+            host += time.perf_counter() - t0
+        host_ms = 1e3 * host / iters
+        cycles = int(self.cycles_per_ms * (2 * host_ms + 0.05))
+        dev = 0.0
+        for _ in range(iters):
+            start, end = self._events()
+            self.flush.zero_()
+            cuda._sleep(cycles)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            dev += start.elapsed_time(end)
+        return dev / iters, host_ms
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+
+
+def sdpa_fastest(torch, clock, call, iters: int):
+    """(ms, host_ms, backend) of `call` (an SDPA call) pinned with
+    `sdpa_kernel` to each backend that accepts the case, the fastest by
+    device time."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    best = None
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name)
+
+        def run(backend=backend):
+            with sdpa_kernel(backend):
+                return call()
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # a refused backend warns, then raises
+                run()
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        ms, host_ms = clock(run, iters)
+        if best is None or ms < best[0]:
+            best = (ms, host_ms, name)
+    if best is None:
+        raise AssertionError("no SDPA backend accepts the case")
+    return best
+
+
+def timed_row(torch, clock, run, plain, lib, iters: int, flops, nbytes, dtn,
+              lib_backward=False) -> dict:
+    """The timing columns of a phase-3 row: kernel, plain version and the
+    library call (an SDPA forward call, or None), beside the bound.  With
+    lib_backward, `lib` is the backward of an SDPA graph already built on
+    the default backend, timed as it is."""
+    ms, host_ms = clock(run, iters)
+    plain_ms, plain_host_ms = clock(plain, iters)
+    if lib is None:
+        lib_ms, lib_host_ms, lib_name = None, None, None
+    elif lib_backward:
+        (lib_ms, lib_host_ms), lib_name = clock(lib, iters), "default backward"
+    else:
+        lib_ms, lib_host_ms, lib_name = sdpa_fastest(torch, clock, lib, iters)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtn], nbytes / HBM_BYTES_PER_S
+    return {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "plain_host_ms": plain_host_ms, "library_ms": lib_ms,
+            "library_host_ms": lib_host_ms, "library": lib_name and f"sdpa:{lib_name}",
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
 
 
 def attention_cost(B, Sq, Skv, H, K, D, Dv, esize, causal=True, vlen=None):
@@ -151,9 +255,8 @@ def attention_cost(B, Sq, Skv, H, K, D, Dv, esize, causal=True, vlen=None):
     return flops, nbytes
 
 
-def kernel_cases(torch, F, fa, fd):
+def kernel_cases(torch, F, fa, fd, clock):
     """Run every kernel-vs-plain case; return the rows, keyed by case name."""
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     rows = {}
@@ -170,7 +273,9 @@ def kernel_cases(torch, F, fa, fd):
         cases += [("flash_decode", dt, dict(B=8, S=1024, H=32, K=8, D=128, vlen=vl))
                   for vl in (1, 513, 1024)]
         cases += [("flash_decode", dt, dict(B=2, S=192, H=32, K=1, D=128, vlen=192)),
-                  ("flash_decode", dt, dict(B=2, S=192, H=32, K=1, D=128, vlen=150))]
+                  ("flash_decode", dt, dict(B=2, S=192, H=32, K=1, D=128, vlen=150)),
+                  ("flash_decode", dt, dict(B=2, S=1024, H=32, K=1, D=128, vlen=777)),
+                  ("flash_decode", dt, dict(B=1, S=4096, H=32, K=8, D=128, vlen=3001))]
 
     for kname, dtn, c in cases:
         dt = getattr(torch, dtn)
@@ -204,18 +309,52 @@ def kernel_cases(torch, F, fa, fd):
                                  f"or shape/dtype {tuple(out.shape)}/{out.dtype}")
         flops, nbytes = attention_cost(B, sq, S, H, K, D, D, q.element_size(),
                                        vlen=vlen)
-        t_ops, t_bytes = flops / PEAK_FLOPS[dtn], nbytes / HBM_BYTES_PER_S
         row = {"kernel": kname, "dtype": dtn, **c, "max_abs_err": err,
-               "ms": time_ms(torch, run, iters, flush),
-               "plain_ms": time_ms(torch, plain, iters, flush),
-               "library_ms": time_ms(torch, lib, iters, flush),
-               "bound_ms": 1e3 * max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "flops": flops, "bytes": nbytes}
+               **timed_row(torch, clock, run, plain, lib, iters, flops, nbytes, dtn)}
         print(json.dumps(row), flush=True)
         rows[(kname, dtn, tuple(sorted(c.items())))] = row
-    del flush
     return rows
+
+
+def _kernel_name(key: str) -> str:
+    """'void repro_torch::(anonymous namespace)::split_kernel<...>(...)'
+    -> 'split_kernel'."""
+    key = key.replace("(anonymous namespace)::", "")
+    return key.split("(")[0].split("::")[-1].split("<")[0]
+
+
+def kernel_breakdown(torch, fd, ssd) -> dict:
+    """Device time (ms) of each CUDA kernel a wrapper call launches, by
+    torch.profiler over 10 calls at the main path's shapes, the L2 flushed
+    before each call: {wrapper: {kernel name: ms per call}}."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    q, k, v = rnd(8, 1, 32, 128).to(bf), rnd(8, 1024, 8, 128).to(bf), rnd(8, 1024, 8, 128).to(bf)
+    x, B, C = rnd(2, 2048, 64, 64).to(bf), rnd(2, 2048, 64).to(bf), rnd(2, 2048, 64).to(bf)
+    dt, A, D = rnd(2, 2048, 64, scale=0.1).abs(), -torch.linspace(1.0, 16.0, 64, device="cuda"), \
+        torch.ones(64, device="cuda")
+    calls = {"flash_decode": lambda: fd.flash_decode(q, k, v, 513),
+             "ssd_scan": lambda: ssd.ssd_scan(x, dt, A, B, C, D, chunk=256)}
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        out[name] = {_kernel_name(e.key): e.device_time_total / 10 / 1e3
+                     for e in prof.key_averages() if "repro_torch" in e.key}
+    print(json.dumps({"kernel_breakdown_ms": out}), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------- 4. parity
@@ -312,28 +451,24 @@ def _rel_err(out, ref):
             / (float(ref.float().abs().max()) + 1e-6))
 
 
-def _row(torch, kname, dtn, c, errs, flops, nbytes, run, plain, lib, iters, flush):
+def _row(torch, clock, kname, dtn, c, errs, flops, nbytes, run, plain, lib, iters,
+         lib_backward=False):
     """Check the relative errors, time the three calls, print and return."""
     err_abs = max(e[0] for e in errs.values())
     err_rel = max(e[1] for e in errs.values())
     if not err_rel <= TOL[dtn]:
         raise AssertionError(f"{kname} {dtn} {c}: relative error {errs} > {TOL[dtn]}")
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtn], nbytes / HBM_BYTES_PER_S
     row = {"kernel": kname, "dtype": dtn, **c, "max_abs_err": err_abs,
-           "max_rel_err": err_rel, "ms": time_ms(torch, run, iters, flush),
-           "plain_ms": time_ms(torch, plain, iters, flush),
-           "library_ms": time_ms(torch, lib, iters, flush) if lib else None,
-           "bound_ms": 1e3 * max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "flops": flops, "bytes": nbytes}
+           "max_rel_err": err_rel,
+           **timed_row(torch, clock, run, plain, lib, iters, flops, nbytes, dtn,
+                       lib_backward)}
     print(json.dumps(row), flush=True)
     return row
 
 
-def training_kernel_cases(torch, F, fa, ssd):
+def training_kernel_cases(torch, F, fa, ssd, clock):
     """ssd_scan, ssd_scan_bwd and flash_attention_bwd against their plain
     versions; return the rows keyed like kernel_cases'."""
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
     rows = {}
@@ -344,12 +479,16 @@ def training_kernel_cases(torch, F, fa, ssd):
     ssd_shapes = [dict(b=2, s=2048, h=64, p=64, n=64, chunk=256),   # zamba2-1.2b
                   dict(b=2, s=256, h=8, p=32, n=16, chunk=32),      # reduced zamba2
                   dict(b=2, s=512, h=2, p=16, n=8, chunk=128)]      # test sweep
+    # the forward alone at chunks 32 to 256, n and p in {16, 32, 64}
+    ssd_fwd_shapes = [dict(b=1, s=1024, h=8, p=p, n=n, chunk=ch) for p, n, ch in
+                      ((16, 16, 32), (32, 64, 32), (64, 64, 32), (64, 32, 64),
+                       (16, 64, 128), (64, 16, 128), (32, 32, 256), (64, 64, 256))]
     fa_shapes = [dict(B=2, S=2048, H=32, K=32, D=64),               # zamba2 shared block
                  dict(B=2, S=1024, H=32, K=8, D=128),               # GQA
                  dict(B=2, S=200, H=32, K=8, D=64)]                 # ragged
     for dtn in ("bfloat16", "float32"):
         dt = getattr(torch, dtn)
-        for c in ssd_shapes:
+        for c in ssd_shapes + ssd_fwd_shapes:
             b, s, h, p, n, chunk = (c[k] for k in ("b", "s", "h", "p", "n", "chunk"))
             x, B, C = rnd((b, s, h, p), dt), rnd((b, s, n), dt), rnd((b, s, n), dt)
             # dt as the reference's test_ssd_kernel_sweep draws it (|N(0, 0.1)|),
@@ -367,9 +506,12 @@ def training_kernel_cases(torch, F, fa, ssd):
             errs = {"y": (float((y.float() - ref).abs().max()), _rel_err(y, ref))}
             flops, nbytes = ssd_cost(b, s, h, p, n, chunk, esize)
             rows[("ssd_scan", dtn, tuple(sorted(c.items())))] = _row(
-                torch, "ssd_scan", dtn, c, errs, flops, nbytes,
+                torch, clock, "ssd_scan", dtn, c, errs, flops, nbytes,
                 lambda: ssd.ssd_scan(*ins, chunk=chunk),
-                lambda: ssd.ssd_scan_plain(*ins, chunk=chunk), None, 10, flush)
+                lambda: ssd.ssd_scan_plain(*ins, chunk=chunk), None,
+                10 if c in ssd_shapes else 3)
+            if c not in ssd_shapes:
+                continue
             # backward
             dy = rnd((b, s, h, p), dt)
             got = ssd._launch_bwd(*ins, dy, chunk)
@@ -381,10 +523,10 @@ def training_kernel_cases(torch, F, fa, ssd):
             y_plain = ssd.ssd_scan_plain(*live, chunk=chunk)
             flops, nbytes = ssd_cost(b, s, h, p, n, chunk, esize, backward=True)
             rows[("ssd_scan_bwd", dtn, tuple(sorted(c.items())))] = _row(
-                torch, "ssd_scan_bwd", dtn, c, errs, flops, nbytes,
+                torch, clock, "ssd_scan_bwd", dtn, c, errs, flops, nbytes,
                 lambda: ssd._launch_bwd(*ins, dy, chunk),
                 lambda: torch.autograd.grad(y_plain, live, dy, retain_graph=True),
-                None, 10, flush)
+                None, 10)
             del y_plain, live
         for c in fa_shapes:
             B, S, H, K, D = (c[k] for k in ("B", "S", "H", "K", "D"))
@@ -408,12 +550,12 @@ def training_kernel_cases(torch, F, fa, ssd):
                 *(t.transpose(1, 2) for t in live), is_causal=True, scale=scale,
                 enable_gqa=True).transpose(1, 2)
             rows[("flash_attention_bwd", dtn, tuple(sorted(c.items())))] = _row(
-                torch, "flash_attention_bwd", dtn, c, errs, flops, nbytes,
+                torch, clock, "flash_attention_bwd", dtn, c, errs, flops, nbytes,
                 lambda: fa._launch_bwd(q, k, v, o, lse, do, causal=True, scale=scale),
                 lambda: torch.autograd.grad(o_plain, live, do, retain_graph=True),
-                lambda: torch.autograd.grad(o_lib, live, do, retain_graph=True), 10, flush)
+                lambda: torch.autograd.grad(o_lib, live, do, retain_graph=True), 10,
+                lib_backward=True)
             del o_plain, o_lib, live
-    del flush
     return rows
 
 
@@ -511,7 +653,11 @@ def full_width_train(torch, fa, ssd):
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phases 1 and 3 alone (the kernel-vs-plain cases and their times)")
+    args = ap.parse_args(argv)
     import torch
     import torch.nn.functional as F
 
@@ -525,24 +671,32 @@ def main() -> int:
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ssd_scan as ssd
 
-    phase("2. build")
-    t0 = time.perf_counter()
-    sources = ["flash_attention", "flash_attention_bwd", "flash_decode", "ssd_scan"]
-    logs = _build.build(sources)
-    print(f"built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f}s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if any(w in line for w in ("Compiling entry", "registers", "spill", "Performance")):
-                print(f"  {name}: {line.strip()}")
-    sass = {name: _build.sass_counts(name) for name in sources}
-    for name, fns in sass.items():
-        for fn, counts in fns.items():
-            print(f"  {name}: {fn} {counts}")
-    check_tensor_cores(sass)
+    if not args.kernels_only:
+        phase("2. build")
+        t0 = time.perf_counter()
+        sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+        logs = _build.build(sources)
+        print(f"built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f}s")
+        for name, log in logs.items():
+            for line in log.splitlines():
+                if any(w in line for w in ("Compiling entry", "registers", "spill",
+                                           "Performance", "serialized")):
+                    print(f"  {name}: {line.strip()}")
+        sass = {name: _build.sass_counts(name) for name in sources}
+        for name, fns in sass.items():
+            for fn, counts in fns.items():
+                print(f"  {name}: {fn} {counts}")
+        check_tensor_cores(sass)
 
     phase("3. kernels vs plain")
-    rows = kernel_cases(torch, F, fa, fd)
-    rows.update(training_kernel_cases(torch, F, fa, ssd))
+    clock = Clock(torch)
+    rows = kernel_cases(torch, F, fa, fd, clock)
+    rows.update(training_kernel_cases(torch, F, fa, ssd, clock))
+    del clock
+    kernel_breakdown(torch, fd, ssd)
+    if args.kernels_only:
+        print(smi)
+        return 0
 
     phase("4. serve parity (reduced llama3-8b, f32, cuda vs cpu)")
     slice_parity(torch)
@@ -569,7 +723,7 @@ def main() -> int:
         "flash_attention": (csrc + "flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:85"),
         "flash_decode": (csrc + "flash_decode.cu", "src/repro/kernels/flash_decode.py:70"),
-        "ssd_scan": (csrc + "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:68"),
+        "ssd_scan": (csrc + "ssd_scan_fwd.cu", "src/repro/kernels/ssd_scan.py:68"),
         "ssd_scan_bwd": (csrc + "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:68"),
         "flash_attention_bwd": (csrc + "flash_attention_bwd.cu",
                                 "src/repro/kernels/flash_attention.py:85"),
@@ -582,8 +736,9 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": meta[name][0],
                         "replaces": meta[name][1], "launches": sum(by_path.values()),
                         "launches_by_path": by_path,
-                        **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                               "bound_ms", "bound_by", "library_ms")}})
+                        **{k: row[k] for k in ("max_abs_err", "ms", "host_ms", "plain_ms",
+                                               "bound_ms", "bound_by", "library_ms",
+                                               "library")}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
 // Thin inline-PTX helpers for Hopper (sm_90a): wgmma on bf16 with f32
 // accumulators, shared-memory matrix descriptors, mbarriers, TMA tile loads
 // and setmaxnreg, plus the host-side tensor-map encoder.  Shared by the bf16
-// attention kernels; no CuTe, so a source builds in seconds.
+// attention kernels and the bf16 SSD forward; no CuTe, so a source builds in
+// seconds.
 //
 // Fragment layouts (PTX ISA, "wgmma" register fragments), for thread
 // `tid` of a 128-thread warpgroup, w = tid / 32, g = (tid % 32) / 4,
@@ -104,6 +105,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// One contiguous run of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory by the bulk-copy engine;
+// completion is reported to `bar` as transaction bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ----------------------------------------------------------------- setmaxnreg
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
@@ -140,6 +152,13 @@ __device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
 }
 
 // --------------------------------------------------------------------- wgmma
+// Makes this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma operand reads, TMA); follow it with a barrier across the
+// threads that stored.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -184,8 +203,9 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[N / 4], const float (&d)[N 
       "+f"(d[o + 15])
 
 // D(64 x 64, f32) (+)= A(64 x 16) B(16 x 64), A and B from shared memory.
-// kTransB = 1 when B is MN-major.  scale_d = 0 overwrites D.
-template <int kTransB>
+// kTransB = 1 when B is MN-major, kTransA = 1 when A is (its 64 rows run
+// along a tile row, the 16 k down the tile).  scale_d = 0 overwrites D.
+template <int kTransB, int kTransA = 0>
 __device__ __forceinline__ void wgmma_64x64_ss(float (&d)[32], uint64_t da, uint64_t db,
                                                int scale_d) {
   asm volatile(
@@ -193,9 +213,9 @@ __device__ __forceinline__ void wgmma_64x64_ss(float (&d)[32], uint64_t da, uint
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%32, %33, p, 1, 1, %36, %35;\n}\n"
       : REPRO_ACC16(0), REPRO_ACC16(16)
-      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB), "n"(kTransA));
 }
 
 // D(64 x 128) (+)= A(64 x 16) B(16 x 128), both from shared memory.

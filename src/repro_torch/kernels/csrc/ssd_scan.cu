@@ -1,4 +1,6 @@
-// Mamba-2 SSD chunked scan, forward and backward, for Hopper, sm_90a.
+// Mamba-2 SSD chunked scan, forward (float32) and backward (float32 and
+// bfloat16), for Hopper, sm_90a.  The bf16 forward, on the tensor cores, is
+// ssd_scan_fwd.cu.
 //
 // Replaces: src/repro/kernels/ssd_scan.py, ssd_scan() and its Pallas body
 // _kernel().  Per (batch b, head h), over chunks of `chunk` positions with
@@ -34,7 +36,7 @@
 //     deterministic (no atomics anywhere);
 //   * each thread owns a 4 x 4 block of every 64 x 64 tile product, with
 //     padded shared rows (no bank conflicts on the reduction axis).
-// Tensor-core products (mma.sync / wgmma) and TMA are later work.
+// The backward on the tensor cores is later work.
 #include "common.cuh"
 
 namespace repro_torch {
@@ -675,22 +677,17 @@ bool bad_shape(int b, int s, int h, int p, int n, int chunk) {
 }  // namespace
 }  // namespace repro_torch
 
-// x: (b, s, h, p) and B, C: (b, s, n) in `dtype`; dt: (b, s, h), A, D: (h,)
-// in float32; y: (b, s, h, p) in `dtype`.  All contiguous.  n, p <= 64,
+// float32 only (bf16: ssd_scan_fwd.cu).  x: (b, s, h, p) and B, C: (b, s, n);
+// dt: (b, s, h), A, D: (h,); y: (b, s, h, p).  All contiguous.  n, p <= 64,
 // s % chunk == 0, chunk <= 1024.  Launches on `stream`, allocates nothing,
 // returns the cudaError_t of the launch.
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A, const void* B,
                             const void* C, const void* D, void* y, int b, int s, int h, int p,
                             int n, int chunk, int dtype, void* stream) {
   using namespace repro_torch;
-  if (bad_shape(b, s, h, p, n, chunk)) return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32: return launch_fwd<float>(x, dt, A, B, C, D, y, b, s, h, p, n, chunk, st);
-    case kBFloat16:
-      return launch_fwd<__nv_bfloat16>(x, dt, A, B, C, D, y, b, s, h, p, n, chunk, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (bad_shape(b, s, h, p, n, chunk) || dtype != kFloat32) return cudaErrorInvalidValue;
+  return launch_fwd<float>(x, dt, A, B, C, D, y, b, s, h, p, n, chunk,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // The backward of ssd_scan_fwd for an upstream gradient dy (b, s, h, p) in

@@ -2,10 +2,12 @@
 versions.
 
 Counterpart of `repro.kernels.ssd_scan.ssd_scan` (a Pallas TPU kernel) and
-of the jnp path `repro.kernels.ops._ssd_jnp`.  The kernels are in
-`csrc/ssd_scan.cu`: the forward (one CTA per (head, batch) looping over the
-chunks, the state in shared memory) and a hand-written backward, joined by
-a `torch.autograd.Function`.
+of the jnp path `repro.kernels.ops._ssd_jnp`.  The bf16 forward is
+`csrc/ssd_scan_fwd.cu`, the chunk-parallel split on the tensor cores (chunk
+states, state passing, chunk scan: three kernels a call); the f32 forward
+(one CTA per (head, batch) looping over the chunks, the state in shared
+memory) and the hand-written backward of both are `csrc/ssd_scan.cu`,
+joined by a `torch.autograd.Function`.
 
 A CUDA tensor launches the kernels (or the wrapper raises); a CPU tensor
 takes `ssd_scan_plain`, the port of `_ssd_jnp`, and autograd through it.
@@ -22,6 +24,7 @@ from . import _build
 MAX_DIM = 64  # the kernels take n, p <= 64
 MAX_CHUNK = 1024
 _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_SM90_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
@@ -101,12 +104,23 @@ def _check(x, dt, A, B, C, D, chunk: int) -> int:
 def _launch_fwd(x, dt, A, B, C, D, chunk: int) -> torch.Tensor:
     code = _check(x, dt, A, B, C, D, chunk)
     b, s, h, p = x.shape
+    n = B.shape[-1]
     y = torch.empty_like(x)
-    fn = _build.load("ssd_scan", "ssd_scan_fwd", _FWD_ARGTYPES)
+    ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            D.data_ptr(), y.data_ptr())
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                 C.data_ptr(), D.data_ptr(), y.data_ptr(), b, s, h, p,
-                 B.shape[-1], chunk, code, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if x.dtype == torch.bfloat16:  # the chunk-parallel tensor-core split
+            f32 = dict(device=x.device, dtype=torch.float32)
+            states = torch.empty((b, s // chunk, h, n, p), **f32)
+            sprev = torch.empty_like(states, dtype=torch.bfloat16)
+            totals = torch.empty((b, s // chunk, h), **f32)
+            fn = _build.load("ssd_scan_fwd", "ssd_scan_fwd_sm90", _SM90_ARGTYPES)
+            err = fn(*ptrs, states.data_ptr(), sprev.data_ptr(), totals.data_ptr(), b, s, h,
+                     p, n, chunk, stream)
+        else:
+            fn = _build.load("ssd_scan", "ssd_scan_fwd", _FWD_ARGTYPES)
+            err = fn(*ptrs, b, s, h, p, n, chunk, code, stream)
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
     ssd_scan.launches += 1
@@ -180,5 +194,6 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256) -> torch.Tensor:
     return _SSDScan.apply(x, dt, A, B, C, D, c)
 
 
-ssd_scan.launches = 0      # forward kernel launches since the last reset
+ssd_scan.launches = 0      # forward calls that launched kernels since the last reset
+                           # (one a call: bf16 launches three kernels, f32 one)
 _launch_bwd.launches = 0   # backward kernel launches since the last reset

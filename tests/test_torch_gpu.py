@@ -82,6 +82,13 @@ def test_flash_attention_kernel_vs_plain(cuda, B, Sq, Skv, H, K, D, dtype, causa
     (2, 1024, 32, 8, 128, 128, 513),  # llama3-8b widths
     (1, 192, 32, 1, 128, 128, 192),  # MQA, 32 heads: several CTAs per kv head
     (2, 300, 4, 2, 128, 64, 299),    # Dv != D, ragged
+    # split-KV: one run at vlen 1, runs not a multiple of the vlen, vlen = S,
+    # a long cache at batch 1, MQA split over many runs
+    (8, 1024, 32, 8, 128, 128, 1),
+    (8, 1024, 32, 8, 128, 128, 1024),
+    (1, 4096, 32, 8, 128, 128, 3001),
+    (2, 1024, 32, 1, 128, 128, 777),
+    (3, 512, 8, 2, 64, 32, 33),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_kernel_vs_plain(cuda, B, S, H, K, D, Dv, vl, dtype):
@@ -140,6 +147,16 @@ SSD_SHAPES = [  # (b, s, h, p, n, chunk)
     (2, 128, 8, 32, 16, 32),     # reduced zamba2
     (1, 512, 4, 64, 64, 256),    # zamba2-1.2b's head widths
     (1, 300, 3, 24, 12, 100),    # chunk not a multiple of the 64-row tile
+    # the bf16 tensor-core split at chunks 32 to 256, n and p in {16, 32, 64}
+    (2, 512, 4, 64, 64, 256),
+    (1, 256, 3, 16, 32, 64),
+    (1, 512, 2, 32, 16, 128),
+    (2, 128, 4, 64, 16, 32),
+    (1, 512, 2, 16, 64, 256),
+    # n = p = 64 (TMA tiles) at chunks under 64 and not a multiple of it:
+    # tile rows past the chunk hold the next chunk's values, masked
+    (2, 256, 4, 64, 64, 32),
+    (1, 300, 2, 64, 64, 100),
 ]
 
 
@@ -186,6 +203,39 @@ def test_ssd_scan_autograd_uses_the_kernels(cuda):
     ref = ssd.ssd_scan_bwd_plain(*ins, 2 * ssd.ssd_scan_plain(*ins, chunk=32), chunk=32)
     for t, r in zip((x, dt, A, B, C, D), ref):
         assert _rel(t.grad, r) < 1e-4
+
+
+def test_flash_decode_split_is_deterministic(cuda):
+    """Several runs merged in a fixed order: the same bits every call, one
+    launch counted per call."""
+    rng = np.random.default_rng(10)
+    q = _rnd(rng, (2, 1, 32, 128), torch.bfloat16, cuda)
+    k, v = (_rnd(rng, (2, 2048, 8, 128), torch.bfloat16, cuda) for _ in range(2))
+    n0 = fd.flash_decode.launches
+    outs = [fd.flash_decode(q, k, v, 1999) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert fd.flash_decode.launches == n0 + 3
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert fd.split_plan(2, 8, 4, 1999, 132)[0] > 1
+
+
+def test_ssd_scan_bf16_autograd_uses_the_kernels(cuda):
+    """The bf16 tensor-core forward under autograd, as the train step runs
+    it: one forward and one backward launch, gradients held at the bf16
+    gate."""
+    x, dt, A, B, C, D = (t.requires_grad_(True) for t in _ssd_inputs(
+        np.random.default_rng(11), 2, 256, 4, 64, 64, torch.bfloat16, cuda))
+    n0 = (ssd.ssd_scan.launches, ssd._launch_bwd.launches)
+    y = ops.ssd_scan(x, dt, A, B, C, D, chunk=64)
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (ssd.ssd_scan.launches, ssd._launch_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    ins = [t.detach().float() for t in (x, dt, A, B, C, D)]
+    ref_y = ssd.ssd_scan_plain(*ins, chunk=64)
+    assert _rel(y.detach(), ref_y) < 2e-2
+    ref = ssd.ssd_scan_bwd_plain(*ins, 2 * y.detach().float(), chunk=64)
+    for t, r in zip((x, dt, A, B, C, D), ref):
+        assert _rel(t.grad, r) < 2e-2
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,K,D", [

@@ -131,6 +131,73 @@ def test_naive_attention_takes_dv_unlike_d():
     assert torch.allclose(o[0, 0, 0], v[0, 0, 0]) and torch.allclose(o[0, 0, 3], v[0, 0, 1])
 
 
+# --- the split-KV decode, as csrc/flash_decode.cu cuts it -------------------
+def _split_decode(q, k, v, vlen, splits, rows, scale):
+    """flash_decode in plain torch, decomposed as the kernel does it: each run
+    of `rows` cache positions gives f32 partial (m, l, acc) rows, and the
+    runs are merged in run order.  A test oracle; nothing on the CUDA path
+    calls it."""
+    B, _, H, D = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, K, H // K, D).float() * scale
+    ms, ls, accs = [], [], []
+    for r in range(splits):
+        lo, hi = r * rows, min(vlen, (r + 1) * rows)
+        sc = torch.einsum("bkgd,btkd->bkgt", qg, k[:, lo:hi].float())
+        m = sc.amax(-1)
+        p = torch.exp(sc - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkgt,btkd->bkgd", p, v[:, lo:hi].float()))
+    mx = torch.stack(ms).amax(0)
+    w = [torch.exp(m - mx) for m in ms]
+    num = sum(wi[..., None] * a for wi, a in zip(w, accs))
+    den = sum(wi * li for wi, li in zip(w, ls))
+    return (num / den[..., None]).reshape(B, 1, H, -1).to(q.dtype)
+
+
+# (vlen, SMs) -> the runs split_plan gives B=2, K=2, G=4: one run at vlen 1
+# or with few SMs, two, and one run per 32-row stage
+SPLIT_CASES = [(1, 132, 1), (100, 2, 1), (100, 4, 2), (100, 132, 4), (256, 4, 2),
+               (256, 132, 8), (77, 132, 3)]
+
+
+@pytest.mark.parametrize("vlen,sms,splits", SPLIT_CASES)
+def test_split_decode_matches_jax(vlen, sms, splits):
+    B, S, H, K, D = 2, 256, 8, 2, 64
+    (jq, jk, jv), (q, k, v) = _inputs(10, "float32", (B, 1, H, D), (B, S, K, D), (B, S, K, D))
+    got_splits, rows = fd.split_plan(B, K, H // K, vlen, sms)
+    assert got_splits == splits and rows % fd.ROWS == 0
+    assert (splits - 1) * rows < vlen <= splits * rows   # no run empty
+    o = _split_decode(q, k, v, vlen, splits, rows, D ** -0.5)
+    assert _err(jref.naive_attention(jq, jk, jv, kv_valid_len=jnp.asarray(vlen)), o) < 2e-5
+    assert float((o - fd.flash_decode_plain(q, k, v, vlen)).abs().max()) < 2e-5
+
+
+def test_split_decode_matches_pallas_interpret():
+    from repro.kernels.flash_decode import flash_decode as pallas_fd
+    (jq, jk, jv), (q, k, v) = _inputs(11, "float32", (2, 1, 8, 64), (2, 256, 2, 64),
+                                      (2, 256, 2, 64))
+    splits, rows = fd.split_plan(2, 2, 4, 200, 132)
+    assert splits > 1
+    jo = pallas_fd(jq, jk, jv, jnp.asarray(200), block_kv=64, interpret=True)
+    assert _err(jo, _split_decode(q, k, v, 200, splits, rows, 64 ** -0.5)) < 2e-5
+
+
+def test_split_plan_fills_the_card_twice():
+    """The serve shape (B=8, K=8, G=4) on 132 SMs: at least 264 CTAs, one run
+    at vlen 1, never more runs than 32-row stages or than MAX_SPLITS."""
+    for vlen in (1, 31, 32, 33, 513, 1024):
+        splits, rows = fd.split_plan(8, 8, 4, vlen, 132)
+        assert splits * rows >= vlen and (splits - 1) * rows < max(vlen, 1)
+        if vlen <= fd.ROWS:
+            assert splits == 1
+        else:  # twice the SMs, or already one stage a run
+            assert 64 * splits >= 264 or rows == fd.ROWS
+    assert fd.split_plan(8, 8, 4, 513, 132) == (5, 128)
+    assert fd.split_plan(1, 1, 1, 1 << 20, 132)[0] == fd.MAX_SPLITS
+
+
 def test_cpu_calls_launch_no_kernel():
     (_, _, _), (q, k, v) = _inputs(8, "float32", (1, 16, 2, 32), (1, 16, 1, 32),
                                    (1, 16, 1, 32))

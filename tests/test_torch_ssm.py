@@ -12,8 +12,16 @@ inputs are rounded from the same f32 numbers on both sides.  Tolerances:
     chains of f32 sums in another order.
 
 The reference runs compiled (`_jit`): op-by-op eager dispatch would spend
-seconds compiling each op for each shape.  The Pallas kernel runs in
-interpret mode, as the reference's own tests run it.
+seconds compiling each op for each shape.  Both sides run their
+contractions single-threaded (`_jit`, `pinned_threads`), so a comparison
+does not depend on the thread pools that earlier test files in the same
+worker left behind.  The Pallas kernel runs in interpret mode, as the
+reference's own tests run it.
+
+`_ssd_split` is the bf16 kernel's chunk-parallel decomposition in plain
+torch (a test oracle): held against the reference at 2e-5 in f32, and with
+the kernel's bf16 rounding points emulated, against the plain version at
+1e-2, half of the card tests' 2e-2 gate.
 """
 import numpy as np
 import pytest
@@ -64,10 +72,13 @@ def _rel(j, t):
 
 
 def _jit(fn, *args):
-    """fn(*args) compiled by XLA at its lowest backend optimisation level:
-    the same arithmetic, compiled in a fraction of the default's time."""
+    """fn(*args) compiled by XLA at its lowest backend optimisation level
+    (the same arithmetic, compiled in a fraction of the default's time) and
+    with its contractions single-threaded: on the shared Eigen pool their
+    rounding depends on how the work is split among threads."""
     return jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_backend_optimization_level": 0})(*args)
+        compiler_options={"xla_backend_optimization_level": 0,
+                          "xla_cpu_multi_thread_eigen": False})(*args)
 
 
 def _close(j, t, **tol):
@@ -76,6 +87,17 @@ def _close(j, t, **tol):
 
 
 # ------------------------------------------------------------ SSD forward
+@pytest.fixture(autouse=True)
+def pinned_threads():
+    """Pin the thread pools that the f32 parity depends on, whatever the
+    worker ran before: torch's intra-op threads (1) for the port's plain
+    version; the reference's side is compiled single-threaded by `_jit`."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("s,chunk", SWEEP)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("against", ["jnp", "pallas_interpret", "naive"])
@@ -90,6 +112,82 @@ def test_ssd_scan_plain_matches_jax(s, chunk, dtype, against):
     y = ssd.ssd_scan(*ins, chunk=chunk)       # a CPU tensor: the plain version
     assert y.dtype == ins[0].dtype and y.shape == ins[0].shape
     assert _rel(jy, y) < DTYPES[dtype][2]
+
+
+# --- the bf16 kernel's chunk-parallel split, in plain torch -----------------
+def _ssd_split(x, dt, A, B, C, D, chunk, bf16_points=False):
+    """The SSD forward decomposed as csrc/ssd_scan_fwd.cu computes it (Dao &
+    Gu 2024, section 6): chunk states s_k = (B o g)^T x with g_u =
+    exp(cs_last - cs_u) dt_u; state passing S_k = exp(cs_last) S_{k-1} + s_k;
+    chunk scan y = (C B^T o gate, causal) (dt o x) + exp(cs_t) C S_{k-1} +
+    D x.  With bf16_points, the kernel's roundings to bf16 before its
+    tensor-core products: B o g, S_{k-1} and the gated W.  A test oracle;
+    nothing on the CUDA path calls it."""
+    rb = (lambda t: t.to(torch.bfloat16).float()) if bf16_points else (lambda t: t)
+    b, s, h, p = x.shape
+    n, nc = B.shape[-1], s // chunk
+    xf = x.float().reshape(b, nc, chunk, h, p)
+    dtf = dt.float().reshape(b, nc, chunk, h)
+    Bf, Cf = (t.float().reshape(b, nc, chunk, n) for t in (B, C))
+    cs = torch.cumsum(dtf * A.float(), dim=2)                    # (b,nc,c,h)
+    total = cs[:, :, -1]                                         # (b,nc,h)
+    g = torch.exp(total[:, :, None] - cs) * dtf
+    sk = torch.einsum("bkuhn,bkuhp->bkhnp", rb(Bf[:, :, :, None] * g[..., None]), xf)
+    run, prev = torch.zeros_like(sk[:, 0]), []
+    for k in range(nc):
+        prev.append(run)
+        run = run * torch.exp(total[:, k])[..., None, None] + sk[:, k]
+    S = rb(torch.stack(prev, 1))                                 # entering states
+    t = torch.arange(chunk)
+    causal = (t[None, :] <= t[:, None])[None, None, :, :, None]
+    seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]            # (b,nc,t,u,h)
+    gate = torch.exp(torch.where(causal, seg, torch.full_like(seg, -float("inf"))))
+    W = rb(torch.einsum("bktn,bkun->bktu", Cf, Bf)[..., None] * gate * dtf[:, :, None])
+    y = torch.einsum("bktuh,bkuhp->bkthp", W, xf)
+    y = y + torch.exp(cs)[..., None] * torch.einsum("bktn,bkhnp->bkthp", Cf, S)
+    return (y.reshape(b, s, h, p) + x.float() * D.float()[:, None]).to(x.dtype)
+
+
+@pytest.mark.parametrize("s,chunk", SWEEP)
+@pytest.mark.parametrize("against", ["jnp", "pallas_interpret", "plain"])
+def test_ssd_chunk_split_matches_jax(s, chunk, against):
+    arrs = _ssd_np(20 + s, s=s)
+    (jx, jdt, jA, jB, jC, jD), ins = _both(arrs, "float32")
+    y = _ssd_split(*ins, chunk)
+    if against == "jnp":
+        ref_y = _jit(lambda *a: jops._ssd_jnp(*a, chunk), jx, jdt, jA, jB, jC, jD)
+    elif against == "pallas_interpret":
+        ref_y = pallas_ssd(jx, jdt, jA, jB, jC, jD, chunk=chunk, interpret=True)
+    else:
+        ref_y = ssd.ssd_scan_plain(*ins, chunk=chunk).numpy()
+    assert _rel(ref_y, y) < 2e-5
+
+
+# the card tests' SSD shapes (tests/test_torch_gpu.py), and zamba2's decay
+# range (A in [-16, -1], as chip_smoke draws it)
+KERNEL_SSD_SHAPES = [(2, 128, 2, 16, 8, 32), (2, 256, 2, 16, 8, 64), (2, 512, 2, 16, 8, 128),
+                     (2, 128, 8, 32, 16, 32), (1, 512, 4, 64, 64, 256),
+                     (1, 300, 3, 24, 12, 100), (1, 256, 3, 16, 32, 64),
+                     (1, 512, 2, 32, 16, 128), (2, 128, 4, 64, 16, 32)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", KERNEL_SSD_SHAPES)
+@pytest.mark.parametrize("decay", ["test", "zamba2"])
+def test_ssd_bf16_rounding_fits_the_gate(b, s, h, p, n, chunk, decay):
+    """The bf16 kernel rounds B o g, S_{k-1} and W to bf16 for its tensor-core
+    products, where the plain version keeps f32: emulated exactly that on
+    the CPU, from bf16 inputs, it stays within half of the 2e-2 gate that
+    tests/test_torch_gpu.py and chip_smoke hold the kernel to."""
+    rng = np.random.default_rng(b * s + h * p + n)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+    x, B, C = (t.to(torch.bfloat16) for t in (f(b, s, h, p), f(b, s, n), f(b, s, n)))
+    dt = (f(b, s, h) * 0.1).abs()
+    A = -torch.linspace(1.0, 16.0, h) if decay == "zamba2" else -f(h).abs()
+    D = f(h)
+    got = _ssd_split(x, dt, A, B, C, D, chunk, bf16_points=True)
+    ref_y = ssd.ssd_scan_plain(x.float(), dt, A, B.float(), C.float(), D, chunk=chunk)
+    assert got.dtype == torch.bfloat16
+    assert _rel(ref_y.numpy(), got) < 1e-2
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
