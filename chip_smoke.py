@@ -16,14 +16,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                 then `cuobjdump -sass` of each library, printing per kernel
                 function its HGMMA, HMMA, UTMALDG and FFMA instructions, and
                 failing if the bf16 attention forward lacks HGMMA or UTMALDG,
-                either bf16 attention backward kernel lacks HGMMA / HMMA, or
-                either bf16 SSD forward product kernel lacks HGMMA.
+                either bf16 attention backward kernel lacks HGMMA / HMMA, a
+                bf16 SSD forward or backward product kernel lacks HGMMA, or
+                ptxas serialized the wgmma of an SSD kernel.
   3. kernels -- each kernel against its plain torch version on the same
                 inputs, in bf16 and f32: the attention kernels at the serving
                 shapes (llama3-8b: H=32, K=8, D=128), at zamba2-1.2b's shared
                 block (H=K=32, D=64) and at ragged / MQA / GQA shapes; the SSD
                 scan and its backward at zamba2-1.2b's widths, the reduced
-                config's and a test sweep's; decode at vlen 1, ragged, full
+                config's and a test sweep's, and the backward (untimed) at
+                the decay the model's init gives; decode at vlen 1, ragged, full
                 and MQA (the split-KV runs); the SSD forward at chunks 32 to
                 256 with n, p in {16, 32, 64}.  Tolerance: 1e-4 in f32 and 2e-2
                 in bf16 against the plain version computed in f32 (the
@@ -37,8 +39,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 backward case times the backward alone: the plain version's
                 and SDPA's backward are autograd over a retained graph.
                 Then `torch.profiler`'s device time of each CUDA kernel that
-                one flash_decode call and one bf16 ssd_scan call launch, at
-                the main path's shapes (L2 flushed before each call).
+                one flash_decode call, one bf16 ssd_scan call and one bf16
+                SSD backward call launch, at the main path's shapes (L2
+                flushed before each call).
   4. serve parity -- reduced llama3-8b in f32 (TF32 off), the same seeded
                 params served on the card (kernels) and on the CPU (plain
                 versions): prefill logits within 1e-4, greedy tokens equal.
@@ -111,7 +114,22 @@ TENSOR_CORE_KERNELS = {
     "flash_attention_bwd": {"dq_sm90": (("HGMMA", "HMMA"),),
                             "dkv_sm90": (("HGMMA", "HMMA"),)},
     "ssd_scan_fwd": {"ssd_state_sm90": (("HGMMA",),), "ssd_scan_sm90": (("HGMMA",),)},
+    "ssd_scan_bwd": {"ssd_dstate_sm90": (("HGMMA",),), "ssd_bwd_dx_sm90": (("HGMMA",),),
+                     "ssd_bwd_dc_sm90": (("HGMMA",),)},
 }
+# Libraries whose kernels may have no wgmma serialized by ptxas (C7510-C7520:
+# a wgmma under a runtime branch, a register written between issue and wait,
+# registers short).
+NO_SERIALIZED_WGMMA = ("ssd_scan_fwd", "ssd_scan_bwd")
+
+
+def check_no_serialized_wgmma(logs: dict) -> None:
+    """logs: library name -> nvcc output of a build made now.  Raises if
+    ptxas reports serialized wgmma in a library of NO_SERIALIZED_WGMMA."""
+    for lib in NO_SERIALIZED_WGMMA:
+        bad = [line.strip() for line in logs.get(lib, "").splitlines() if "serialized" in line]
+        if bad:
+            raise AssertionError(f"{lib}: ptxas serialized wgmma: {bad}")
 
 
 def check_tensor_cores(sass: dict) -> None:
@@ -339,8 +357,10 @@ def kernel_breakdown(torch, fd, ssd) -> dict:
     x, B, C = rnd(2, 2048, 64, 64).to(bf), rnd(2, 2048, 64).to(bf), rnd(2, 2048, 64).to(bf)
     dt, A, D = rnd(2, 2048, 64, scale=0.1).abs(), -torch.linspace(1.0, 16.0, 64, device="cuda"), \
         torch.ones(64, device="cuda")
+    dy = rnd(2, 2048, 64, 64).to(bf)
     calls = {"flash_decode": lambda: fd.flash_decode(q, k, v, 513),
-             "ssd_scan": lambda: ssd.ssd_scan(x, dt, A, B, C, D, chunk=256)}
+             "ssd_scan": lambda: ssd.ssd_scan(x, dt, A, B, C, D, chunk=256),
+             "ssd_scan_bwd": lambda: ssd._launch_bwd(x, dt, A, B, C, D, dy, 256)}
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     out = {}
     for name, fn in calls.items():
@@ -459,7 +479,7 @@ def _row(torch, clock, kname, dtn, c, errs, flops, nbytes, run, plain, lib, iter
     if not err_rel <= TOL[dtn]:
         raise AssertionError(f"{kname} {dtn} {c}: relative error {errs} > {TOL[dtn]}")
     row = {"kernel": kname, "dtype": dtn, **c, "max_abs_err": err_abs,
-           "max_rel_err": err_rel,
+           "max_rel_err": err_rel, "rel_errs": {k: e[1] for k, e in errs.items()},
            **timed_row(torch, clock, run, plain, lib, iters, flops, nbytes, dtn,
                        lib_backward)}
     print(json.dumps(row), flush=True)
@@ -528,6 +548,23 @@ def training_kernel_cases(torch, F, fa, ssd, clock):
                 lambda: torch.autograd.grad(y_plain, live, dy, retain_graph=True),
                 None, 10)
             del y_plain, live
+        # the backward at the decay the model's init gives (dt = softplus(N(0, 1)),
+        # hundreds of e-folds a chunk), where ddt and dA are small differences
+        # of large sums: checked, not timed
+        b, s, h, p, n, chunk = 2, 2048, 64, 64, 64, 256
+        x, B, C, dy = rnd((b, s, h, p), dt), rnd((b, s, n), dt), rnd((b, s, n), dt), \
+            rnd((b, s, h, p), dt)
+        ins = (x, torch.nn.functional.softplus(rnd((b, s, h), torch.float32)),
+               -torch.linspace(1.0, 16.0, h, device="cuda"), B, C, torch.ones(h, device="cuda"))
+        got = ssd._launch_bwd(*ins, dy, chunk)
+        refs = ssd.ssd_scan_bwd_plain(*(t.float() for t in ins), dy.float(), chunk=chunk)
+        errs = {k: _rel_err(a, r) for k, a, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD"),
+                                                      got, refs)}
+        print(json.dumps({"kernel": "ssd_scan_bwd", "dtype": dtn, "decay": "model",
+                          "max_rel_err": errs}), flush=True)
+        if not max(errs.values()) <= TOL[dtn]:
+            raise AssertionError(f"ssd_scan_bwd {dtn} at the model's decay: {errs} > {TOL[dtn]}")
+        del got, refs
         for c in fa_shapes:
             B, S, H, K, D = (c[k] for k in ("B", "S", "H", "K", "D"))
             scale = 1.0 / math.sqrt(D)
@@ -687,6 +724,7 @@ def main(argv=None) -> int:
             for fn, counts in fns.items():
                 print(f"  {name}: {fn} {counts}")
         check_tensor_cores(sass)
+        check_no_serialized_wgmma(logs)
 
     phase("3. kernels vs plain")
     clock = Clock(torch)
@@ -724,7 +762,7 @@ def main(argv=None) -> int:
                             "src/repro/kernels/flash_attention.py:85"),
         "flash_decode": (csrc + "flash_decode.cu", "src/repro/kernels/flash_decode.py:70"),
         "ssd_scan": (csrc + "ssd_scan_fwd.cu", "src/repro/kernels/ssd_scan.py:68"),
-        "ssd_scan_bwd": (csrc + "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:68"),
+        "ssd_scan_bwd": (csrc + "ssd_scan_bwd.cu", "src/repro/kernels/ssd_scan.py:68"),
         "flash_attention_bwd": (csrc + "flash_attention_bwd.cu",
                                 "src/repro/kernels/flash_attention.py:85"),
     }

@@ -1,6 +1,6 @@
-// Mamba-2 SSD chunked scan, forward (float32) and backward (float32 and
-// bfloat16), for Hopper, sm_90a.  The bf16 forward, on the tensor cores, is
-// ssd_scan_fwd.cu.
+// Mamba-2 SSD chunked scan, forward and backward in float32, for Hopper,
+// sm_90a.  In bf16 both run on the tensor cores: ssd_scan_fwd.cu and
+// ssd_scan_bwd.cu.
 //
 // Replaces: src/repro/kernels/ssd_scan.py, ssd_scan() and its Pallas body
 // _kernel().  Per (batch b, head h), over chunks of `chunk` positions with
@@ -36,7 +36,6 @@
 //     deterministic (no atomics anywhere);
 //   * each thread owns a 4 x 4 block of every 64 x 64 tile product, with
 //     padded shared rows (no bank conflicts on the reduction axis).
-// The backward on the tensor cores is later work.
 #include "common.cuh"
 
 namespace repro_torch {
@@ -690,24 +689,16 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A, const 
                            static_cast<cudaStream_t>(stream));
 }
 
-// The backward of ssd_scan_fwd for an upstream gradient dy (b, s, h, p) in
-// `dtype`.  Writes dx (b, s, h, p) in `dtype`; in float32: ddt (b, s, h),
-// the per-head dB and dC (b, s, h, n), dA and dD per (b, h); `states` is
-// scratch of b * h * (s / chunk) * 64 * 64 floats.
+// The backward of ssd_scan_fwd for an upstream gradient dy (b, s, h, p),
+// float32 only (bf16: ssd_scan_bwd.cu).  Writes dx (b, s, h, p), ddt
+// (b, s, h), the per-head dB and dC (b, s, h, n), dA and dD per (b, h);
+// `states` is scratch of b * h * (s / chunk) * 64 * 64 floats.
 extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* A, const void* B,
                             const void* C, const void* D, const void* dy, void* dx, void* ddt,
                             void* dBh, void* dCh, void* dA, void* dD, void* states, int b,
                             int s, int h, int p, int n, int chunk, int dtype, void* stream) {
   using namespace repro_torch;
-  if (bad_shape(b, s, h, p, n, chunk)) return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      return launch_bwd<float>(x, dt, A, B, C, D, dy, dx, ddt, dBh, dCh, dA, dD, states, b, s,
-                               h, p, n, chunk, st);
-    case kBFloat16:
-      return launch_bwd<__nv_bfloat16>(x, dt, A, B, C, D, dy, dx, ddt, dBh, dCh, dA, dD, states,
-                                       b, s, h, p, n, chunk, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (bad_shape(b, s, h, p, n, chunk) || dtype != kFloat32) return cudaErrorInvalidValue;
+  return launch_bwd<float>(x, dt, A, B, C, D, dy, dx, ddt, dBh, dCh, dA, dD, states, b, s, h, p,
+                           n, chunk, static_cast<cudaStream_t>(stream));
 }

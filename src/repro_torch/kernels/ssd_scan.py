@@ -2,12 +2,13 @@
 versions.
 
 Counterpart of `repro.kernels.ssd_scan.ssd_scan` (a Pallas TPU kernel) and
-of the jnp path `repro.kernels.ops._ssd_jnp`.  The bf16 forward is
-`csrc/ssd_scan_fwd.cu`, the chunk-parallel split on the tensor cores (chunk
-states, state passing, chunk scan: three kernels a call); the f32 forward
-(one CTA per (head, batch) looping over the chunks, the state in shared
-memory) and the hand-written backward of both are `csrc/ssd_scan.cu`,
-joined by a `torch.autograd.Function`.
+of the jnp path `repro.kernels.ops._ssd_jnp`.  In bf16 both directions are
+the chunk-parallel split on the tensor cores: the forward is
+`csrc/ssd_scan_fwd.cu` (chunk states, state passing, chunk scan: three
+kernels a call), the backward `csrc/ssd_scan_bwd.cu` (six kernels a call;
+it recomputes the states it needs to about 16 bits).  In f32 both are
+`csrc/ssd_scan.cu` (one CTA per (head, batch) looping over the chunks).  A
+`torch.autograd.Function` joins them.
 
 A CUDA tensor launches the kernels (or the wrapper raises); a CPU tensor
 takes `ssd_scan_plain`, the port of `_ssd_jnp`, and autograd through it.
@@ -26,6 +27,8 @@ MAX_CHUNK = 1024
 _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _SM90_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_SM90_BWD_ARGTYPES = [ctypes.c_void_p] * 30 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+HEADS_PER_GROUP = 8  # heads a bf16 backward CTA sums dB and dC over
 
 
 def ssd_scan_plain(x, dt, A, B, C, D, *, chunk: int = 256,
@@ -128,36 +131,63 @@ def _launch_fwd(x, dt, A, B, C, D, chunk: int) -> torch.Tensor:
 
 
 def _launch_bwd(x, dt, A, B, C, D, dy, chunk: int):
-    """(dx, ddt, dA, dB, dC, dD) of `ssd_scan` for the upstream gradient dy:
-    the backward kernel, on CUDA tensors."""
+    """(dx, ddt, dA, dB, dC, dD) of `ssd_scan` for the upstream gradient dy,
+    on CUDA tensors: bf16 launches `csrc/ssd_scan_bwd.cu`, f32 the backward
+    of `csrc/ssd_scan.cu`."""
     code = _check(x, dt, A, B, C, D, chunk)
     _build.check_inputs("ssd_scan_bwd", x, dy)
     if dy.shape != x.shape:
         raise ValueError(f"ssd_scan_bwd: dy{tuple(dy.shape)} != x{tuple(x.shape)}")
     b, s, h, p = x.shape
     n = B.shape[-1]
+    nc = s // chunk
     f32 = dict(device=x.device, dtype=torch.float32)
     dx = torch.empty_like(x)
     ddt = torch.empty((b, s, h), **f32)
-    dBh = torch.empty((b, s, h, n), **f32)
-    dCh = torch.empty((b, s, h, n), **f32)
-    dA = torch.empty((b, h), **f32)
-    dD = torch.empty((b, h), **f32)
-    states = torch.empty((b, h, s // chunk, MAX_DIM, MAX_DIM), **f32)
-    fn = _build.load("ssd_scan", "ssd_scan_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                 C.data_ptr(), D.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                 ddt.data_ptr(), dBh.data_ptr(), dCh.data_ptr(), dA.data_ptr(),
-                 dD.data_ptr(), states.data_ptr(), b, s, h, p, n, chunk, code,
-                 torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+    if x.dtype == torch.bfloat16:
+        hg = min(h, HEADS_PER_GROUP)
+        groups, n_t, parts = -(-h // hg), -(-chunk // 64), 8 * -(-(n * p) // 256)
+        dB, dC, dA, dD = (torch.empty_like(t) for t in (B, C, A, D))
+        scratch = (
+            torch.empty((b, nc, h), **f32),                    # dA per chunk
+            torch.empty((b, nc, h), **f32),                    # chunk decay totals
+            torch.empty((b, nc, n_t, h), **f32),               # dD per 64-row tile
+            torch.empty((b, s, groups, n), **f32),             # dB per head group
+            torch.empty((b, s, groups, n), **f32),             # dC per head group
+            *(torch.empty((b, nc, h, chunk), **f32) for _ in range(5)),  # cs, dt, ddd, pn, dcs
+            torch.empty((b, nc, h, n, p), **f32),              # chunk states
+            torch.empty((b, nc, h, n, p), **f32),              # their gradients
+            *(torch.empty((b, nc, h, n, p), dtype=torch.bfloat16, device=x.device)
+              for _ in range(4)),                              # S, dS as bf16 pairs
+            torch.empty((b, nc, h, parts), **f32))             # dtot per warp of the pass
+        fn = _build.load("ssd_scan_bwd", "ssd_scan_bwd_sm90", _SM90_BWD_ARGTYPES)
+        with torch.cuda.device(x.device):
+            err = fn(*(t.data_ptr() for t in (x, dt, A, B, C, D, dy, dx, dB, dC, ddt, dA, dD,
+                                              *scratch)),
+                     b, s, h, p, n, chunk, hg, stream)
+        out = (dx, ddt, dA, dB, dC, dD)  # every sum in a fixed order: deterministic
+    else:
+        dBh = torch.empty((b, s, h, n), **f32)
+        dCh = torch.empty((b, s, h, n), **f32)
+        dA = torch.empty((b, h), **f32)
+        dD = torch.empty((b, h), **f32)
+        states = torch.empty((b, h, nc, MAX_DIM, MAX_DIM), **f32)
+        fn = _build.load("ssd_scan", "ssd_scan_bwd", _BWD_ARGTYPES)
+        with torch.cuda.device(x.device):
+            err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                     C.data_ptr(), D.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                     ddt.data_ptr(), dBh.data_ptr(), dCh.data_ptr(), dA.data_ptr(),
+                     dD.data_ptr(), states.data_ptr(), b, s, h, p, n, chunk, code, stream)
+        # B and C are shared by the heads: per-head partials, summed in a
+        # fixed order
+        out = (dx, ddt, dA.sum(0), dBh.sum(2), dCh.sum(2), dD.sum(0))
     if err:
         raise RuntimeError(f"ssd_scan_bwd kernel launch failed: cudaError {err}")
     _launch_bwd.launches += 1
-    # B and C are shared by the heads: the kernel writes per-head partials,
-    # summed here in a fixed order (no atomics, so a step is deterministic)
-    return (dx, ddt, dA.sum(0), dBh.sum(2).to(B.dtype), dCh.sum(2).to(C.dtype),
-            dD.sum(0))
+    dx, ddt, dA, dB, dC, dD = out
+    return dx, ddt, dA, dB.to(B.dtype), dC.to(C.dtype), dD
 
 
 def _fresh(t: torch.Tensor) -> torch.Tensor:
@@ -196,4 +226,5 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256) -> torch.Tensor:
 
 ssd_scan.launches = 0      # forward calls that launched kernels since the last reset
                            # (one a call: bf16 launches three kernels, f32 one)
-_launch_bwd.launches = 0   # backward kernel launches since the last reset
+_launch_bwd.launches = 0   # backward calls that launched kernels since the last reset
+                           # (one a call: bf16 launches six kernels, f32 one)

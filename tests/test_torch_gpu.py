@@ -157,6 +157,9 @@ SSD_SHAPES = [  # (b, s, h, p, n, chunk)
     # tile rows past the chunk hold the next chunk's values, masked
     (2, 256, 4, 64, 64, 32),
     (1, 300, 2, 64, 64, 100),
+    # chunks of several blocks of four 64-row tiles (TMA; cp.async)
+    (1, 1024, 2, 64, 64, 512),
+    (1, 1024, 2, 32, 16, 1024),
 ]
 
 
@@ -203,6 +206,58 @@ def test_ssd_scan_autograd_uses_the_kernels(cuda):
     ref = ssd.ssd_scan_bwd_plain(*ins, 2 * ssd.ssd_scan_plain(*ins, chunk=32), chunk=32)
     for t, r in zip((x, dt, A, B, C, D), ref):
         assert _rel(t.grad, r) < 1e-4
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [(2, 2048, 64, 64, 64, 256), (2, 512, 2, 16, 8, 128),
+                                             (1, 300, 3, 24, 12, 100)])
+def test_ssd_scan_bwd_bf16_at_the_models_decay(cuda, b, s, h, p, n, chunk):
+    """dt = softplus(N(0, 1)) and A in [-16, -1], as the model's init gives
+    them: hundreds of e-folds of decay inside a chunk, where ddt and dA are
+    small differences of large row and column sums of the gated terms."""
+    rng = np.random.default_rng(14)
+    x, _, _, B, C, D = _ssd_inputs(rng, b, s, h, p, n, torch.bfloat16, cuda)
+    dt = torch.nn.functional.softplus(_rnd(rng, (b, s, h), torch.float32, cuda))
+    A = -torch.linspace(1.0, 16.0, h, device=cuda)
+    dy = _rnd(rng, (b, s, h, p), torch.bfloat16, cuda)
+    got = ssd._launch_bwd(x, dt, A, B, C, D, dy, chunk)
+    ref = ssd.ssd_scan_bwd_plain(x.float(), dt, A, B.float(), C.float(), D, dy.float(),
+                                 chunk=chunk)
+    for name, g, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, ref):
+        assert _rel(g, r) < 2e-2, (name, _rel(g, r))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_ssd_scan_bwd_bf16_dA_over_draws(cuda, seed):
+    """dA sums dt times a cumsum of differences of large sums: with the bf16
+    forward's own entering states (B o g and S_{k-1} rounded to bf16) it
+    moved by up to 5e-2 of its scale over draws like these; the backward
+    recomputes them to about 16 bits."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    b, s, h, p, n, chunk = 2, 512, 2, 16, 8, 128
+    x, dy = (torch.randn((b, s, h, p), generator=g, device=cuda).to(torch.bfloat16)
+             for _ in range(2))
+    B, C = (torch.randn((b, s, n), generator=g, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    dt = (torch.randn((b, s, h), generator=g, device=cuda) * 0.1).abs()
+    A, D = -torch.linspace(1.0, 16.0, h, device=cuda), torch.ones(h, device=cuda)
+    got = ssd._launch_bwd(x, dt, A, B, C, D, dy, chunk)
+    ref = ssd.ssd_scan_bwd_plain(x.float(), dt, A, B.float(), C.float(), D, dy.float(),
+                                 chunk=chunk)
+    for name, gr, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, ref):
+        assert _rel(gr, r) < 2e-2, (name, _rel(gr, r))
+
+
+def test_ssd_scan_bwd_bf16_is_deterministic(cuda):
+    """The bf16 backward sums its partials in a fixed order, no atomics: two
+    calls give the same bits, at zamba2's widths (TMA tiles, heads in
+    groups) and at a ragged chunk."""
+    for b, s, h, p, n, chunk in ((2, 512, 16, 64, 64, 256), (1, 300, 3, 24, 12, 100)):
+        rng = np.random.default_rng(12)
+        ins = _ssd_inputs(rng, b, s, h, p, n, torch.bfloat16, cuda)
+        dy = _rnd(rng, (b, s, h, p), torch.bfloat16, cuda)
+        first, second = (ssd._launch_bwd(*ins, dy, chunk) for _ in range(2))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(first, second))
 
 
 def test_flash_decode_split_is_deterministic(cuda):

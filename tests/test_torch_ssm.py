@@ -168,7 +168,8 @@ def test_ssd_chunk_split_matches_jax(s, chunk, against):
 KERNEL_SSD_SHAPES = [(2, 128, 2, 16, 8, 32), (2, 256, 2, 16, 8, 64), (2, 512, 2, 16, 8, 128),
                      (2, 128, 8, 32, 16, 32), (1, 512, 4, 64, 64, 256),
                      (1, 300, 3, 24, 12, 100), (1, 256, 3, 16, 32, 64),
-                     (1, 512, 2, 32, 16, 128), (2, 128, 4, 64, 16, 32)]
+                     (1, 512, 2, 32, 16, 128), (2, 128, 4, 64, 16, 32),
+                     (1, 1024, 2, 64, 64, 512), (1, 1024, 2, 32, 16, 1024)]
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", KERNEL_SSD_SHAPES)
@@ -188,6 +189,112 @@ def test_ssd_bf16_rounding_fits_the_gate(b, s, h, p, n, chunk, decay):
     ref_y = ssd.ssd_scan_plain(x.float(), dt, A, B.float(), C.float(), D, chunk=chunk)
     assert got.dtype == torch.bfloat16
     assert _rel(ref_y.numpy(), got) < 1e-2
+
+
+def _ssd_bwd_split(x, dt, A, B, C, D, dy, chunk, bf16_points=False):
+    """The SSD backward decomposed as csrc/ssd_scan_bwd.cu computes it (Dao
+    & Gu 2024, section 6): chunk states s_k = (B o g)^T x and their
+    gradients' ds_k = (C o exp(cs))^T dy; the entering states S_{k-1}
+    forward and dS_{k-1} = exp(total_k) dS_k + ds_k in reverse, with dtot_k
+    = exp(total_k) <S_{k-1}, dS_k>; the products over the causal (t, u)
+    pairs with K = C B^T o G and E = G o dt_u o (dy x^T); the dcs terms,
+    their reverse cumsum, ddt = direct + A acc.  With bf16_points, the
+    kernels' roundings before their tensor-core products: K and E to bf16;
+    B o g, C o exp(cs), S_{k-1} and dS to pairs of bf16 (high and low
+    half), which keep about 16 bits.  A test oracle; nothing on the CUDA
+    path calls it.  Returns (dx, ddt, dA, dB, dC, dD) in f32."""
+    rb = (lambda t: t.to(torch.bfloat16).float()) if bf16_points else (lambda t: t)
+    hilo = lambda t: rb(t) + rb(t - rb(t))  # noqa: E731  (a bf16 pair: high and low half)
+    b, s, h, p = x.shape
+    n, nc = B.shape[-1], s // chunk
+    xf, dyf = (t.float().reshape(b, nc, chunk, h, p) for t in (x, dy))
+    dtf = dt.float().reshape(b, nc, chunk, h)
+    Bf, Cf = (t.float().reshape(b, nc, chunk, n) for t in (B, C))
+    cs = torch.cumsum(dtf * A.float(), dim=2)                    # (b,nc,c,h)
+    total = cs[:, :, -1]                                         # (b,nc,h)
+    edec = torch.exp(total[:, :, None] - cs)                     # exp(total - cs_u)
+    # 1. chunk states and their gradients; 2. the state passes, in f32
+    sk = torch.einsum("bkuhn,bkuhp->bkhnp", hilo(Bf[:, :, :, None] * (edec * dtf)[..., None]),
+                      xf)
+    run, prev = torch.zeros_like(sk[:, 0]), []
+    for k in range(nc):
+        prev.append(run)
+        run = run * torch.exp(total[:, k])[..., None, None] + sk[:, k]
+    S = hilo(torch.stack(prev, 1))                               # (b,nc,h,n,p)
+    ds = torch.einsum("bkthn,bkthp->bkhnp",
+                      hilo(Cf[:, :, :, None] * torch.exp(cs)[..., None]), dyf)
+    run, dS, dtot = torch.zeros_like(ds[:, 0]), [None] * nc, [None] * nc
+    for k in reversed(range(nc)):
+        dS[k] = run
+        dtot[k] = torch.exp(total[:, k]) * (S[:, k] * run).sum((-2, -1))
+        run = run * torch.exp(total[:, k])[..., None, None] + ds[:, k]
+    dS, dtot = hilo(torch.stack(dS, 1)), torch.stack(dtot, 1)      # (b,nc,h,n,p), (b,nc,h)
+    # 3. the products over the causal pairs
+    t = torch.arange(chunk)
+    causal = (t[None, :] <= t[:, None])[None, None, :, :, None]
+    seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]            # (b,nc,t,u,h)
+    G = torch.exp(torch.where(causal, seg, torch.full_like(seg, -float("inf"))))
+    CB = torch.einsum("bktn,bkun->bktu", Cf, Bf)[..., None]
+    xdy = torch.einsum("bkthp,bkuhp->bktuh", dyf, xf)
+    K = rb(CB * G)
+    E = rb(G * dtf[:, :, None] * xdy)
+    Z = CB * G * xdy
+    bds = torch.einsum("bkun,bkhnp->bkuhp", Bf, dS)              # B_u dS
+    dx = dtf[..., None] * (torch.einsum("bktuh,bkthp->bkuhp", K, dyf) + edec[..., None] * bds)
+    dx = dx + D.float()[:, None] * dyf
+    dB = torch.einsum("bktuh,bktn->bkun", E, Cf) + torch.einsum(
+        "bkuh,bkuhp,bkhnp->bkun", edec * dtf, xf, dS)
+    dC = torch.einsum("bktuh,bkun->bktn", E, Bf) + torch.einsum(
+        "bkth,bkthp,bkhnp->bktn", torch.exp(cs), dyf, S)
+    # 4. the cumsum's gradient: direct terms (u side), row terms (t side)
+    pn = edec * (bds * xf).sum(-1)                               # (b,nc,u,h)
+    ddd = Z.sum(2) + pn
+    dcs = (Z * dtf[:, :, None]).sum(3) - dtf * ddd + torch.exp(cs) * torch.einsum(
+        "bktn,bkhnp,bkthp->bkth", Cf, S, dyf)
+    dcs[:, :, -1] += dtot + (dtf * pn).sum(2)
+    acc = torch.flip(torch.cumsum(torch.flip(dcs, [2]), 2), [2])  # sum over rows >= i
+    ddt = ddd + A.float() * acc
+    return (dx.reshape(b, s, h, p), ddt.reshape(b, s, h), (dtf * acc).sum((0, 1, 2)),
+            dB.reshape(b, s, n), dC.reshape(b, s, n), (xf * dyf).sum((0, 1, 2, 4)))
+
+
+@pytest.mark.parametrize("s,chunk", SWEEP[:2])
+def test_ssd_bwd_split_matches_jax(s, chunk):
+    """The backward's chunk-parallel split, in f32, against jax.vjp of the
+    reference's _ssd_jnp: all six gradients at 1e-4."""
+    arrs = _ssd_np(40 + s, s=s)
+    dy = np.random.default_rng(41).standard_normal(arrs[0].shape).astype(np.float32)
+    jins, ins = _both(arrs, "float32")
+    jgrads = _jit(lambda g, *a: jax.vjp(lambda *b: jops._ssd_jnp(*b, chunk), *a)[1](g),
+                  jnp.asarray(dy), *jins)
+    grads = _ssd_bwd_split(*ins, torch.from_numpy(dy), chunk)
+    for name, jg, g, t in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), jgrads, grads, ins):
+        assert g.shape == t.shape, name
+        _close(jg, g)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", KERNEL_SSD_SHAPES)
+@pytest.mark.parametrize("decay", ["test", "zamba2", "model"])
+def test_ssd_bwd_bf16_rounding_fits_the_gate(b, s, h, p, n, chunk, decay):
+    """The bf16 backward rounds K and E to bf16 for its tensor-core products
+    and splits B o g, C o exp(cs), S_{k-1} and dS into bf16 pairs: emulated
+    exactly that on the CPU, each gradient stays within half of the 2e-2
+    gate that tests/test_torch_gpu.py and chip_smoke hold the kernels to,
+    ddt and dA (direct + A acc, which cancels at A = -16) included.
+    "model" draws dt = softplus(N(0, 1)), as the model's init gives it:
+    decays of hundreds of e-folds inside a chunk."""
+    rng = np.random.default_rng(7 * b * s + h * p + n)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+    x, B, C, dy = (t.to(torch.bfloat16) for t in (f(b, s, h, p), f(b, s, n), f(b, s, n),
+                                                  f(b, s, h, p)))
+    dt = torch.nn.functional.softplus(f(b, s, h)) if decay == "model" else (f(b, s, h) * 0.1).abs()
+    A = -f(h).abs() if decay == "test" else -torch.linspace(1.0, 16.0, h)
+    D = f(h)
+    got = _ssd_bwd_split(x, dt, A, B, C, D, dy, chunk, bf16_points=True)
+    refs = ssd.ssd_scan_bwd_plain(x.float(), dt, A, B.float(), C.float(), D, dy.float(),
+                                  chunk=chunk)
+    for name, g, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, refs):
+        assert _rel(r.numpy(), g) < 1e-2, name
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
