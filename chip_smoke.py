@@ -25,9 +25,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                 block (H=K=32, D=64) and at ragged / MQA / GQA shapes; the SSD
                 scan and its backward at zamba2-1.2b's widths, the reduced
                 config's and a test sweep's, and the backward (untimed) at
-                the decay the model's init gives; decode at vlen 1, ragged, full
+                the decay the model's init gives (its error against the
+                plain version in f64 shown beside); decode at vlen 1, ragged, full
                 and MQA (the split-KV runs); the SSD forward at chunks 32 to
-                256 with n, p in {16, 32, 64}.  Tolerance: 1e-4 in f32 and 2e-2
+                256 with n, p in {16, 32, 64}; and, in bf16, every kernel at
+                the shapes phase 9 gives it (the prefill of a 4 x 38-token
+                batch, decode over its 38-row cache, the SSD forward and
+                backward and the attention forward and backward of 4 x 2048
+                tokens at zamba2-1.2b's widths).  Tolerance: 1e-4 in f32 and 2e-2
                 in bf16 against the plain version computed in f32 (the
                 attention forward absolute, the SSD scan and the backward
                 kernels relative to the largest reference magnitude).  Each
@@ -61,9 +66,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                 widths (38 layers, bf16, remat full, 4 microbatches), 3 steps
                 of 8 x 2048 tokens; the launch counts are zeroed just before
                 and read just after and must equal `train_launches`.
-  8. a JSON line {"kernels": [...]} with each kernel's launches in phases 5
-     and 7 and its numbers at its main path's shapes.
-  9. the last line: {"ok": true, "device": {...}}.
+  9. live seam -- `repro_torch.launch.elastic_cluster.main`: the scheduler
+                service (CUA&SPAA, speed inf) over 8 slots of the card, three
+                zamba2-1.2b training jobs at full width cut to 6 layers (bf16,
+                4 x 2048 tokens a step, 12 steps, a checkpoint every 6) and
+                llama3-8b at full width and depth serving the on-demand job
+                (4 prompts of 29-38 tokens: the cache stays prompt-long, and
+                each decode step writes its last row, as the reference's
+                does).  Runs before the line of phase 8.  Fails unless its
+                serve batch has the shapes phase 3 checked, every job
+                reaches 12 steps with finite losses, the log
+                holds the SPAA acquire, a shrink and the expand that repays
+                it, each kernel launched as often as `train_launches` and the
+                serve's layers say (counts zeroed just before, read just
+                after), the on-demand tokens equal a second `serve_batch` of
+                the same requests (the serve is deterministic; phase 3 holds
+                the kernels to their plain versions at these shapes), and a
+                malleable job preempted on the card
+                resumes from its checkpoint with its params bit for bit.
+  8. a JSON line {"kernels": [...]} with each kernel's launches in phases 5,
+     7 and 9 and its numbers at its main path's shapes.
+  10. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package `repro`.
 """
@@ -147,6 +170,15 @@ def check_tensor_cores(sass: dict) -> None:
 
 
 # --------------------------------------------------------------- 3. kernels
+# Phase 9's sizes, which phase 3 also checks the kernels at: the training
+# jobs' layers, steps, batch and sequence, and the on-demand batch that
+# `plan_requests` plans for the demo's job (4 prompts of 29-38 tokens).
+LIVE_TRAIN_LAYERS = 6     # zamba2-1.2b's first attention period
+LIVE_TARGET_STEPS = 12
+LIVE_BATCH, LIVE_SEQ = 4, 2048
+LIVE_SERVE_BATCH, LIVE_SERVE_PROMPT = 4, 38
+
+
 class Clock:
     """Times a Python call that launches device work, two ways.
 
@@ -294,6 +326,12 @@ def kernel_cases(torch, F, fa, fd, clock):
                   ("flash_decode", dt, dict(B=2, S=192, H=32, K=1, D=128, vlen=150)),
                   ("flash_decode", dt, dict(B=2, S=1024, H=32, K=1, D=128, vlen=777)),
                   ("flash_decode", dt, dict(B=1, S=4096, H=32, K=8, D=128, vlen=3001))]
+    # phase 9's own shapes (it runs bf16): its prefill, its training jobs'
+    # shared block, and its decode over the prompt-long cache
+    B, S = LIVE_SERVE_BATCH, LIVE_SERVE_PROMPT
+    cases += [("flash_attention", "bfloat16", dict(B=B, S=S, H=32, K=8, D=128)),
+              ("flash_attention", "bfloat16", dict(B=LIVE_BATCH, S=LIVE_SEQ, H=32, K=32, D=64)),
+              ("flash_decode", "bfloat16", dict(B=B, S=S, H=32, K=8, D=128, vlen=S))]
 
     for kname, dtn, c in cases:
         dt = getattr(torch, dtn)
@@ -506,9 +544,14 @@ def training_kernel_cases(torch, F, fa, ssd, clock):
     fa_shapes = [dict(B=2, S=2048, H=32, K=32, D=64),               # zamba2 shared block
                  dict(B=2, S=1024, H=32, K=8, D=128),               # GQA
                  dict(B=2, S=200, H=32, K=8, D=64)]                 # ragged
+    # phase 9's own shapes (bf16): its jobs' batch at zamba2-1.2b's widths
+    live_ssd = [dict(b=LIVE_BATCH, s=LIVE_SEQ, h=64, p=64, n=64, chunk=256)]
+    live_fa = [dict(B=LIVE_BATCH, S=LIVE_SEQ, H=32, K=32, D=64)]
     for dtn in ("bfloat16", "float32"):
         dt = getattr(torch, dtn)
-        for c in ssd_shapes + ssd_fwd_shapes:
+        bf16 = dtn == "bfloat16"
+        fwd_bwd = ssd_shapes + (live_ssd if bf16 else [])
+        for c in fwd_bwd + ssd_fwd_shapes:
             b, s, h, p, n, chunk = (c[k] for k in ("b", "s", "h", "p", "n", "chunk"))
             x, B, C = rnd((b, s, h, p), dt), rnd((b, s, n), dt), rnd((b, s, n), dt)
             # dt as the reference's test_ssd_kernel_sweep draws it (|N(0, 0.1)|),
@@ -529,8 +572,8 @@ def training_kernel_cases(torch, F, fa, ssd, clock):
                 torch, clock, "ssd_scan", dtn, c, errs, flops, nbytes,
                 lambda: ssd.ssd_scan(*ins, chunk=chunk),
                 lambda: ssd.ssd_scan_plain(*ins, chunk=chunk), None,
-                10 if c in ssd_shapes else 3)
-            if c not in ssd_shapes:
+                10 if c in fwd_bwd else 3)
+            if c not in fwd_bwd:
                 continue
             # backward
             dy = rnd((b, s, h, p), dt)
@@ -558,14 +601,19 @@ def training_kernel_cases(torch, F, fa, ssd, clock):
                -torch.linspace(1.0, 16.0, h, device="cuda"), B, C, torch.ones(h, device="cuda"))
         got = ssd._launch_bwd(*ins, dy, chunk)
         refs = ssd.ssd_scan_bwd_plain(*(t.float() for t in ins), dy.float(), chunk=chunk)
-        errs = {k: _rel_err(a, r) for k, a, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD"),
-                                                      got, refs)}
+        names = ("dx", "ddt", "dA", "dB", "dC", "dD")
+        errs = {k: _rel_err(a, r) for k, a, r in zip(names, got, refs)}
+        # beside it, the error against the plain version computed in f64
+        # (shown, not checked: the f32 plain version's own rounding is of
+        # the order of the tolerance here)
+        refs = ssd.ssd_scan_bwd_plain(*(t.double() for t in ins), dy.double(), chunk=chunk)
+        errs64 = {k: _rel_err(a, r) for k, a, r in zip(names, got, refs)}
         print(json.dumps({"kernel": "ssd_scan_bwd", "dtype": dtn, "decay": "model",
-                          "max_rel_err": errs}), flush=True)
+                          "max_rel_err": errs, "max_rel_err_vs_f64": errs64}), flush=True)
         if not max(errs.values()) <= TOL[dtn]:
             raise AssertionError(f"ssd_scan_bwd {dtn} at the model's decay: {errs} > {TOL[dtn]}")
         del got, refs
-        for c in fa_shapes:
+        for c in fa_shapes + (live_fa if bf16 else []):
             B, S, H, K, D = (c[k] for k in ("B", "S", "H", "K", "D"))
             scale = 1.0 / math.sqrt(D)
             q, k, v = rnd((B, S, H, D), dt), rnd((B, S, K, D), dt), rnd((B, S, K, D), dt)
@@ -690,6 +738,126 @@ def full_width_train(torch, fa, ssd):
     return launches
 
 
+# ------------------------------------------------------------- 9. live seam
+
+def live_seam(torch, fa, fd, ssd):
+    """The scheduler service driving the port on 8 slots of the card
+    (`repro_torch.launch.elastic_cluster.main`, CUA&SPAA, speed inf): three
+    zamba2-1.2b jobs at full width cut to LIVE_TRAIN_LAYERS layers, bf16,
+    4 x 2048 tokens a step, and llama3-8b at full width and depth serving
+    the on-demand job.  Returns the phase's launches per kernel."""
+    import shutil
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.elastic_cluster import MAX_SEQ, plan_batch
+    from repro_torch.launch.elastic_cluster import main as cluster_main
+    from repro_torch.models import init_params
+    from repro_torch.runtime import ElasticJob
+    from repro_torch.runtime.elastic import _state_leaves
+    from repro_torch.serving import ServeEngine
+
+    ckpt = ROOT / "build" / "live_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    print(f"disk free under build/: {shutil.disk_usage(ckpt).free / 2**30:.1f} GiB")
+    serve_cfg = get_config("llama3_8b")
+    serve_params = init_params(serve_cfg, seed=9, device="cuda")
+    argv = ["--train-arch", "zamba2-1.2b", "--train-layers", str(LIVE_TRAIN_LAYERS),
+            "--serve-arch", "llama3-8b", "--batch", str(LIVE_BATCH), "--seq", str(LIVE_SEQ),
+            "--target-steps", str(LIVE_TARGET_STEPS), "--ckpt-every", "6",
+            "--speed", "inf", "--ckpt-dir", str(ckpt)]
+    counters = {"flash_attention": fa.flash_attention, "flash_decode": fd.flash_decode,
+                "ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd._launch_bwd,
+                "flash_attention_bwd": fa._launch_bwd}
+    jobs = {}
+    for fn in counters.values():
+        fn.launches = 0
+    stats = cluster_main(argv, serve_params=serve_params,
+                         on_job=lambda job: jobs.__setitem__(job.jid, job))
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    log = stats["cluster_log"]
+    print(json.dumps({"live": {
+        "decisions": stats["n_decisions"], "digest": stats["digest"],
+        "cluster_log": log,
+        "jobs": {jid: {k: j[k] for k in ("kind", "steps_done", "shrink_count",
+                                         "preempt_count", "step_seconds", "steady_step_s",
+                                         "tokens_per_s", "ckpt_seconds", "reshard_s",
+                                         "losses")}
+                 for jid, j in stats["jobs"].items()},
+        "served": [{k: s[k] for k in ("jid", "nodes", "prompt_lens", "seconds", "ttft_s",
+                                      "tok_per_s")} for s in stats["served"]],
+        "wall_s": stats["wall_s"], "max_memory_allocated": stats["max_memory_allocated"],
+        "launches": launches}}), flush=True)
+
+    # the serve batches had the shapes phase 3 held the kernels to
+    for s in stats["served"]:
+        if (len(s["prompt_lens"]), max(s["prompt_lens"])) != (LIVE_SERVE_BATCH,
+                                                              LIVE_SERVE_PROMPT):
+            raise AssertionError(f"on-demand batch of prompts {s['prompt_lens']}: not the "
+                                 f"{LIVE_SERVE_BATCH} x {LIVE_SERVE_PROMPT} phase 3 checked")
+    # every job trained to the target with finite losses
+    for jid, j in stats["jobs"].items():
+        if j["steps_done"] != LIVE_TARGET_STEPS or not all(map(math.isfinite, j["losses"])):
+            raise AssertionError(f"job {jid}: {j['steps_done']} steps, losses {j['losses']}")
+    # the arrival policy vacated the on-demand nodes by a shrink, repaid by an expand
+    shrunk = {e["jid"] for e in log if e["event"] == "shrink"}
+    if not ({"event": "od_acquire", "jid": -1, "source": "SPAA", "nodes": 4} in log
+            and shrunk and shrunk <= {e["jid"] for e in log if e["event"] == "expand"}):
+        raise AssertionError(f"no SPAA acquire with a shrink and its repaying expand: {log}")
+    # each kernel: launched in this phase, the training kernels as many times
+    # as train_launches says for the steps taken, serving 32 layers a prefill
+    # and 32 a decode step
+    cfg = get_config("zamba2_1p2b").with_(n_layers=LIVE_TRAIN_LAYERS)
+    steps = sum(len(job.step_seconds) for job in jobs.values())
+    serves = len(stats["served"])
+    decode_steps = sum(max(len(t) for t in s["tokens"]) - 1 for s in stats["served"])
+    per_step = train_launches(cfg, 1)
+    expected = {name: n * steps for name, n in per_step.items()}
+    expected["flash_attention"] += serve_cfg.n_layers * serves
+    expected["flash_decode"] = serve_cfg.n_layers * decode_steps
+    print(f"launches {launches}, expected {expected} ({steps} train steps, "
+          f"{serves} serve batches, {decode_steps} decode steps)")
+    if launches != expected or not all(launches.values()):
+        raise AssertionError(f"kernel launches {launches} != {expected}")
+    # the served tokens are those of the same requests served again outside
+    # the cluster, on an engine over the same params (a determinism check)
+    engine = ServeEngine(serve_cfg, serve_params, max_seq=MAX_SEQ, device="cuda")
+    for s in stats["served"]:
+        reqs = plan_batch(SimpleNamespace(jid=s["jid"], size=s["nodes"]), serve_cfg.vocab)
+        engine.serve_batch(reqs)
+        if [r.tokens_out for r in reqs] != s["tokens"]:
+            raise AssertionError(f"on-demand job {s['jid']}: tokens differ from a "
+                                 f"second serve_batch")
+    print(f"on-demand tokens equal a second serve_batch: {len(stats['served'])} batch(es)")
+    del engine, serve_params
+    # preempt -> resume on the card from the checkpoint, bit for bit
+    jid, job = next((jid, job) for jid, job in sorted(jobs.items()) if job.kind == "malleable")
+    before = [t.clone() for t in _state_leaves(job.state.params)]
+    t0 = time.perf_counter()
+    job.preempt(warning=True)
+    t_preempt = time.perf_counter() - t0
+    again = ElasticJob(jid, job.cfg, kind="malleable", batch=job.batch, seq=job.seq,
+                       ckpt_dir=job.ckpt_dir, seed=job.seed)
+    t0 = time.perf_counter()
+    again.resume(["cuda"])
+    t_resume = time.perf_counter() - t0
+    after = _state_leaves(again.state.params)
+    same = len(before) == len(after) and all(
+        a.is_cuda and torch.equal(a, b) for a, b in zip(after, before))
+    print(json.dumps({"preempt_resume": {"jid": jid, "step": again.step_idx,
+                                         "preempt_s": t_preempt, "resume_s": t_resume,
+                                         "params_bit_equal": same}}))
+    if not (same and again.step_idx == job.step_idx):
+        raise AssertionError(f"job {jid}: resume on the card did not restore the params "
+                             f"bit for bit (step {again.step_idx} vs {job.step_idx})")
+    del jobs, job, again, before, after
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -748,6 +916,10 @@ def main(argv=None) -> int:
     phase("7. full-width zamba2-1.2b train (bf16, 38 layers, 3 steps)")
     train_launches_seen = full_width_train(torch, fa, ssd)
 
+    phase(f"9. live seam (CUA&SPAA, 8 slots on one card: zamba2-1.2b cut to "
+          f"{LIVE_TRAIN_LAYERS} layers x 3 jobs, llama3-8b serving)")
+    live_launches = live_seam(torch, fa, fd, ssd)
+
     phase("8. kernels")
     main_shape = {
         "flash_attention": ("bfloat16", dict(B=8, S=512, H=32, K=8, D=128)),
@@ -770,7 +942,8 @@ def main(argv=None) -> int:
     for name, (dtn, c) in main_shape.items():
         row = rows[(name, dtn, tuple(sorted(c.items())))]
         by_path = {"serve": serve_launches.get(name, 0),
-                   "train": train_launches_seen.get(name, 0)}
+                   "train": train_launches_seen.get(name, 0),
+                   "live": live_launches[name]}
         kernels.append({"name": name, "route": "cuda", "source": meta[name][0],
                         "replaces": meta[name][1], "launches": sum(by_path.values()),
                         "launches_by_path": by_path,

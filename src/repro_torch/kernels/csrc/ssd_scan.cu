@@ -35,7 +35,12 @@
 //     and summed over heads by the caller in a fixed order, so a step is
 //     deterministic (no atomics anywhere);
 //   * each thread owns a 4 x 4 block of every 64 x 64 tile product, with
-//     padded shared rows (no bank conflicts on the reduction axis).
+//     padded shared rows (no bank conflicts on the reduction axis);
+//   * ddt and dA come from d cs, whose reverse cumsum is a small difference
+//     of large row and column sums of the gated terms at the model's decay
+//     (hundreds of e-folds a chunk), and each gate exp(cs_t - cs_u) takes
+//     the rounding of cs (some 300 in size) into its exponent: the backward
+//     keeps cs, those sums and their reverse cumsum in f64.
 #include "common.cuh"
 
 namespace repro_torch {
@@ -58,9 +63,11 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __re
   }
 }
 
-// dts[i] = dt at chunk row i, cs = inclusive cumsum of dts * a.  Ends
-// with the block synchronised.
-__device__ void chunk_gates(float* __restrict__ dts, float* __restrict__ cs,
+// dts[i] = dt at chunk row i, cs = inclusive cumsum of dts * a, summed in
+// Cs (float in the forward, double in the backward).  Ends with the block
+// synchronised.
+template <typename Cs>
+__device__ void chunk_gates(float* __restrict__ dts, Cs* __restrict__ cs,
                            const float* __restrict__ dt_col, int H, float a, int chunk) {
   __syncthreads();  // the previous chunk's readers are done
   for (int i = threadIdx.x; i < chunk; i += kThreads) dts[i] = dt_col[(size_t)i * H];
@@ -68,15 +75,15 @@ __device__ void chunk_gates(float* __restrict__ dts, float* __restrict__ cs,
   if (threadIdx.x < 32) {  // one warp: a segment per lane, then a scan of the segments
     const int lane = threadIdx.x, per = (chunk + 31) / 32;
     const int lo = min(chunk, lane * per), hi = min(chunk, lo + per);
-    float run = 0.f;
+    Cs run = 0;
     for (int i = lo; i < hi; ++i) {
-      run += dts[i] * a;
+      run += (Cs)dts[i] * (Cs)a;
       cs[i] = run;
     }
-    float incl = run;
+    Cs incl = run;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const float v = __shfl_up_sync(0xffffffffu, incl, off);
+      const Cs v = __shfl_up_sync(0xffffffffu, incl, off);
       if (lane >= off) incl += v;
     }
     for (int i = lo; i < hi; ++i) cs[i] += incl - run;
@@ -86,18 +93,18 @@ __device__ void chunk_gates(float* __restrict__ dts, float* __restrict__ cs,
 
 // S <- exp(cs_last) S + sum_u exp(cs_last - cs_u) dt_u B_u x_u^T over one
 // chunk.  Bc / xc point at the chunk's first row.  Ends synchronised.
-template <typename T>
+template <typename T, typename Cs>
 __device__ void advance_state(float* __restrict__ St, float* __restrict__ Bu,
-                              float* __restrict__ Xu, const float* __restrict__ cs,
+                              float* __restrict__ Xu, const Cs* __restrict__ cs,
                               const float* __restrict__ dts, const T* __restrict__ Bc,
                               const T* __restrict__ xc, size_t xs, int N, int P, int chunk) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float total = cs[chunk - 1];
+  const Cs total = cs[chunk - 1];
   float acc[4][4];  // rows n = ty*4+i, columns p = tx+16j
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = St[(ty * 4 + i) * kS + tx + 16 * j] * expf(total);
+    for (int j = 0; j < 4; ++j) acc[i][j] = St[(ty * 4 + i) * kS + tx + 16 * j] * expf((float)total);
   for (int u0 = 0; u0 < chunk; u0 += kT) {
     const int ur = min(kT, chunk - u0);
     __syncthreads();
@@ -105,7 +112,7 @@ __device__ void advance_state(float* __restrict__ St, float* __restrict__ Bu,
     load_tile(Xu, xc + (size_t)u0 * xs, xs, ur, P);
     __syncthreads();
     for (int r = 0; r < ur; ++r) {
-      const float g = expf(total - cs[u0 + r]) * dts[u0 + r];
+      const float g = expf((float)(total - cs[u0 + r])) * dts[u0 + r];
       float bv[4], xv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) bv[i] = Bu[r * kS + ty * 4 + i] * g;
@@ -126,13 +133,13 @@ __device__ void advance_state(float* __restrict__ St, float* __restrict__ Bu,
 }
 
 // Sum of v over the block, in a fixed order; every thread gets it.
-__device__ float block_sum(float v, float* __restrict__ red) {
+__device__ double block_sum(double v, double* __restrict__ red) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   __syncthreads();
   if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
   __syncthreads();
-  float s = 0.f;
+  double s = 0.0;
   for (int w = 0; w < kThreads / 32; ++w) s += red[w];
   return s;
 }
@@ -286,12 +293,14 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   float* Ks = Xu + kTile;    // (C_t . B_u) exp(cs_t - cs_u), masked
   float* Es = Ks + kTile;    // exp(cs_t - cs_u) dt_u (x_u . dy_t), masked
   float* Zs = Es + kTile;    // Ks * (x_u . dy_t)
-  float* cs = Zs + kTile;
-  float* dts = cs + chunk;
-  float* dcs = dts + chunk;  // d loss / d cs, row-side terms
-  float* dcu = dcs + chunk;  // d loss / d cs, column-side terms
-  float* ddd = dcu + chunk;  // d loss / d dt, direct terms
-  float* red = ddd + chunk;  // 8 floats for block sums
+  // the cumsum and the gate gradients in f64 (9 tiles of floats end 8-byte
+  // aligned), then dt
+  double* cs = reinterpret_cast<double*>(Zs + kTile);
+  double* dcs = cs + chunk;   // d loss / d cs, row-side terms
+  double* dcu = dcs + chunk;  // d loss / d cs, column-side terms
+  double* ddd = dcu + chunk;  // d loss / d dt, direct terms
+  double* red = ddd + chunk;  // 8 doubles for block sums
+  float* dts = reinterpret_cast<float*>(red + 8);
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -326,15 +335,16 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   // ---- pass 2: chunks in reverse, dS carried
   for (int e = threadIdx.x; e < kTile; e += kThreads) dS[e] = 0.f;
-  float dA_acc = 0.f, dD_acc = 0.f;
+  double dA_acc = 0.0;
+  float dD_acc = 0.f;
   for (int k = nc - 1; k >= 0; --k) {
     const int c0 = k * chunk;
     __syncthreads();
     for (int e = threadIdx.x; e < kMax * kMax; e += kThreads)
       St[(e / kMax) * kS + e % kMax] = stb[(size_t)k * kMax * kMax + e];
-    for (int i = threadIdx.x; i < chunk; i += kThreads) dcu[i] = ddd[i] = 0.f;
+    for (int i = threadIdx.x; i < chunk; i += kThreads) dcu[i] = ddd[i] = 0.0;
     chunk_gates(dts, cs, dtb + (size_t)c0 * H, H, a, chunk);
-    const float total = cs[chunk - 1];
+    const double total = cs[chunk - 1];
 
     // dS entering this chunk: exp(total) dS + sum_t exp(cs_t) C_t dy_t^T
     // (rows n = ty*4+i, columns p = tx+16j); and exp(total) <S, dS>.
@@ -345,7 +355,7 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int e = (ty * 4 + i) * kS + tx + 16 * j;
-        dsn[i][j] = dS[e] * expf(total);
+        dsn[i][j] = dS[e] * expf((float)total);
         last = fmaf(St[e], dsn[i][j], last);
       }
 
@@ -376,7 +386,7 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = ty * 4 + i;
-        const float e = r < tr ? expf(cs[t0 + r]) : 0.f;
+        const float e = r < tr ? expf((float)cs[t0 + r]) : 0.f;
         float rs = 0.f;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -385,10 +395,10 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
           if (r < tr && n < N) dCb[(size_t)(c0 + t0 + r) * ns + n] = e * w[i][j];
         }
         rs = row_sum16(rs);
-        if (tx == 0 && r < tr) dcs[t0 + r] = e * rs;
+        if (tx == 0 && r < tr) dcs[t0 + r] = (double)e * rs;
       }
       for (int r = 0; r < tr; ++r) {
-        const float e = expf(cs[t0 + r]);
+        const float e = expf((float)cs[t0 + r]);
         float cv[4], yv[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) cv[i] = Ct[r * kS + ty * 4 + i] * e;
@@ -402,7 +412,7 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     }
 
     // main pass: u tiles outer, t tiles from the last down to the diagonal
-    float sum_p = 0.f;
+    double sum_p = 0.0;
     for (int u0 = 0; u0 < chunk; u0 += kT) {
       const int ur = min(kT, chunk - u0);
       __syncthreads();
@@ -455,7 +465,7 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
           for (int j = 0; j < 4; ++j) {
             const int u = u0 + tx + 16 * j;
             const bool ok = u <= t && t < t0 + tr && u < u0 + ur;
-            const float g = ok ? expf(cs[t] - cs[u]) : 0.f;
+            const float g = ok ? expf((float)(cs[t] - cs[u])) : 0.f;
             const int e = (ty * 4 + i) * kS + tx + 16 * j;
             Ks[e] = cb[i][j] * g;
             Es[e] = ok ? g * dts[u] * xdy[i][j] : 0.f;
@@ -519,7 +529,7 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         if (threadIdx.x < kT) {
           const int c = threadIdx.x;
           if (c < ur) {
-            float s = 0.f;
+            double s = 0.0;
             for (int r = 0; r < tr; ++r) s += Zs[r * kS + c];
             ddd[u0 + c] += s;
             dcu[u0 + c] -= dts[u0 + c] * s;
@@ -527,8 +537,8 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         } else if (threadIdx.x < 2 * kT) {
           const int r = threadIdx.x - kT;
           if (r < tr) {
-            float s = 0.f;
-            for (int c = 0; c < ur; ++c) s = fmaf(Zs[r * kS + c], dts[u0 + c], s);
+            double s = 0.0;
+            for (int c = 0; c < ur; ++c) s = fma((double)Zs[r * kS + c], (double)dts[u0 + c], s);
             dcs[t0 + r] += s;
           }
         }
@@ -568,7 +578,7 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         const int r = ty * 4 + i;
         const bool okr = r < ur;
         const int u = u0 + (okr ? r : 0);
-        const float g = okr ? expf(total - cs[u]) : 0.f;
+        const float g = okr ? expf((float)(total - cs[u])) : 0.f;
         const float dtu = okr ? dts[u] : 0.f;
         float pn = 0.f;
 #pragma unroll
@@ -577,8 +587,8 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         if (!okr) continue;
         if (tx == 0) {
           ddd[u] += pn;
-          dcu[u] -= dtu * pn;
-          sum_p += dtu * pn;
+          dcu[u] -= (double)dtu * pn;
+          sum_p += (double)dtu * pn;
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -594,26 +604,26 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       }
     }
     // the last row's cs also carries exp(total) <S, dS> and sum_u dt_u Pn_u
-    const float extra = block_sum(last + sum_p, red);
+    const double extra = block_sum(last + sum_p, red);
     if (threadIdx.x == 0) dcs[chunk - 1] += extra;
     __syncthreads();
     // d la = reverse cumsum of dcs; ddt = direct + A d la; dA += dt d la
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x, per = (chunk + 31) / 32;
       const int lo = min(chunk, lane * per), hi = min(chunk, lo + per);
-      float run = 0.f;
+      double run = 0.0;
       for (int i = hi - 1; i >= lo; --i) run += dcs[i] + dcu[i];
-      float incl = run;  // suffix sum over this lane's segment and those after
+      double incl = run;  // suffix sum over this lane's segment and those after
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
-        const float vv = __shfl_down_sync(0xffffffffu, incl, off);
+        const double vv = __shfl_down_sync(0xffffffffu, incl, off);
         if (lane + off < 32) incl += vv;
       }
-      float acc = incl - run;
+      double acc = incl - run;
       for (int i = hi - 1; i >= lo; --i) {
         acc += dcs[i] + dcu[i];
-        ddtb[(size_t)(c0 + i) * H] = ddd[i] + a * acc;
-        dA_acc = fmaf(dts[i], acc, dA_acc);
+        ddtb[(size_t)(c0 + i) * H] = (float)(ddd[i] + (double)a * acc);
+        dA_acc = fma((double)dts[i], acc, dA_acc);
       }
     }
     __syncthreads();
@@ -622,8 +632,8 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
       for (int j = 0; j < 4; ++j) dS[(ty * 4 + i) * kS + tx + 16 * j] = dsn[i][j];
   }
-  const float dA_sum = block_sum(dA_acc, red);
-  const float dD_sum = block_sum(dD_acc, red);
+  const float dA_sum = (float)block_sum(dA_acc, red);
+  const float dD_sum = (float)block_sum(dD_acc, red);
   if (threadIdx.x == 0) {
     dA_part[(size_t)b * H + h] = dA_sum;
     dD_part[(size_t)b * H + h] = dD_sum;
@@ -631,7 +641,9 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 }
 
 size_t fwd_smem(int chunk) { return sizeof(float) * (5 * kTile + 2 * chunk); }
-size_t bwd_smem(int chunk) { return sizeof(float) * (9 * kTile + 5 * chunk + 8); }
+size_t bwd_smem(int chunk) {
+  return sizeof(float) * (9 * kTile + chunk) + sizeof(double) * (4 * chunk + 8);
+}
 
 template <typename T>
 cudaError_t launch_fwd(const void* x, const void* dt, const void* A, const void* B,

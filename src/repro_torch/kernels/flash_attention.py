@@ -49,18 +49,24 @@ def flash_attention_bwd_plain(q, k, v, do, *, causal: bool = True,
         return torch.autograd.grad(o, ins, do)
 
 
+def supports(q, k, v) -> bool:
+    """Whether the kernels take these shapes: q (B, Sq, H, D), k and v
+    (B, Skv, K, D) with D in HEAD_DIMS, Dv == D and H % K == 0.  Exactly
+    the shape test of `_check`, which raises for any other shape on
+    the card."""
+    B, _, H, D = q.shape
+    return (k.shape[0] == B and k.shape[3] == D and v.shape == k.shape
+            and H % k.shape[2] == 0 and D in HEAD_DIMS)
+
+
 def _check(kernel: str, q, k, v) -> int:
-    if q.device.type != "cuda":
-        raise ValueError(f"{kernel}: no kernel for device {q.device}")
-    B, Sq, H, D = q.shape
-    K = k.shape[2]
-    code = _build.check_inputs(kernel, q, k, v)
-    if (k.shape[0] != B or k.shape[3] != D or v.shape != k.shape
-            or H % K or D not in HEAD_DIMS):
+    if not supports(q, k, v):
         raise ValueError(f"{kernel}: unsupported shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} "
                          f"(head dim in {HEAD_DIMS}, Dv == D, H % K == 0)")
-    return code
+    if q.device.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for device {q.device}")
+    return _build.check_inputs(kernel, q, k, v)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool, scale: float,

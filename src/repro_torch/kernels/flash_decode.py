@@ -58,15 +58,23 @@ def split_plan(B: int, K: int, G: int, vlen: int, sms: int) -> Tuple[int, int]:
     return max(1, -(-vlen // rows)), rows
 
 
+def supports(q, k, v) -> bool:
+    """Whether the kernel takes these shapes: q (B, 1, H, D), k (B, S, K, D)
+    and v (B, S, K, Dv) with D and Dv in HEAD_DIMS and H % K == 0.  Exactly
+    the shape test of `_validate`, which raises for any other shape on
+    the card."""
+    B, sq, H, D = q.shape
+    return (sq == 1 and k.shape[:3] == v.shape[:3] and k.shape[0] == B
+            and k.shape[3] == D and H % k.shape[2] == 0 and D in HEAD_DIMS
+            and v.shape[3] in HEAD_DIMS)
+
+
 def _validate(q, k, v):
-    B, _, H, D = q.shape
-    _, S, K, Dv = v.shape
-    code = _build.check_inputs("flash_decode", q, k, v)
-    if (k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != D
-            or H % K or D not in HEAD_DIMS or Dv not in HEAD_DIMS):
+    if not supports(q, k, v):
         raise ValueError(f"flash_decode: unsupported shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} "
                          f"(head dims in {HEAD_DIMS}, H % K == 0)")
+    code = _build.check_inputs("flash_decode", q, k, v)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     return code, _build.load("flash_decode", "flash_decode_fwd", _ARGTYPES), sms
 

@@ -9,12 +9,19 @@ The three dispatch points are the reference's (`ops.py:216`, `:221` and
   * one query token against a cache (`kv_valid_len`) -> `flash_decode`;
   * the SSD scan without a final state (training)    -> `ssd_scan`.
 
-On a CUDA tensor those launch the hand-written Hopper kernels; on a CPU
-tensor the same calls take the kernels' plain versions.  Everything else
-(non-causal and cross attention, Sq != Skv) is plain torch, as it is jnp in
-the reference.  The reference's `_causal_binary` / `_rect_chunked` (and
-`_merge`) exist to keep XLA's FLOP counts exact and come with the dry-run
-slice.
+The routing rule, decided by shape before any launch:
+
+  * a CPU tensor takes the kernels' plain versions (each wrapper does so);
+  * a CUDA tensor launches the kernel of its dispatch point.  A shape that
+    kernel's `supports` refuses (head dims other than 32, 64 and 128 for
+    the attention kernels; n or p over 64, a chunk over 1024 or s not a
+    multiple of it for the SSD scan) raises `ValueError` before any
+    launch: no call on the card gives way to a plain version.
+
+Everything else (non-causal and cross attention, Sq != Skv) is plain
+torch, as it is jnp in the reference.  The reference's `_causal_binary` /
+`_rect_chunked` (and `_merge`) exist to keep XLA's FLOP counts exact and
+come with the dry-run slice.
 """
 from __future__ import annotations
 
@@ -59,9 +66,10 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256,
              return_final_state: bool = False):
     """Mamba-2 SSD (matches `ref.naive_ssd`), the reference's dispatch
     (`ops.py:254-266`): without `return_final_state` the hand-written
-    kernel (its plain version on a CPU tensor).  The kernel does not emit
-    the final state, so on a CUDA tensor `return_final_state` raises (hybrid
-    prefill, ROADMAP queue 1); on the CPU it takes `ssd_scan_plain`."""
+    kernel (its plain version on a CPU tensor; on a CUDA tensor widths it
+    does not `supports` raise).  The kernel does not emit the final
+    state, so on a CUDA tensor `return_final_state` raises (hybrid prefill,
+    ROADMAP queue 1); on the CPU it takes `ssd_scan_plain`."""
     if not return_final_state:
         return ssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
     if x.device.type != "cpu":

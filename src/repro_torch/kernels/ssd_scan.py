@@ -34,19 +34,21 @@ HEADS_PER_GROUP = 8  # heads a bf16 backward CTA sums dB and dC over
 def ssd_scan_plain(x, dt, A, B, C, D, *, chunk: int = 256,
                    return_final_state: bool = False):
     """The chunked SSD in plain torch (`_ssd_jnp`): chunk-local quadratic
-    attention form plus the carried inter-chunk state.  With
-    return_final_state, also returns the (b, h, p, n) f32 state after the
-    last token."""
+    attention form plus the carried inter-chunk state, computed in f32 (in
+    f64 for f64 inputs, a reference for the kernels' own rounding).  With
+    return_final_state, also returns the (b, h, p, n) state after the last
+    token."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     c = min(chunk, s)
     nc = s // c
     assert s % c == 0, f"seq {s} not divisible by chunk {c}"
-    xf = x.float().reshape(b, nc, c, h, p)
-    dtf = dt.float().reshape(b, nc, c, h)
-    Bf = B.float().reshape(b, nc, c, n)
-    Cf = C.float().reshape(b, nc, c, n)
-    la = dtf * A.float()[None, None, None, :]        # log decay per step (<=0)
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(ct).reshape(b, nc, c, h, p)
+    dtf = dt.to(ct).reshape(b, nc, c, h)
+    Bf = B.to(ct).reshape(b, nc, c, n)
+    Cf = C.to(ct).reshape(b, nc, c, n)
+    la = dtf * A.to(ct)[None, None, None, :]         # log decay per step (<=0)
     cs = torch.cumsum(la, dim=2)                     # within-chunk cumulative
     total = cs[:, :, -1, :]                          # (b,nc,h)
 
@@ -64,7 +66,7 @@ def ssd_scan_plain(x, dt, A, B, C, D, *, chunk: int = 256,
     # ---- chunk states & inter-chunk scan -----------------------------------
     decay_to_end = torch.exp(total[:, :, None, :] - cs)   # (b,nc,c,h)
     states = torch.einsum("bkch,bkcn,bkchp->bkhpn", decay_to_end * dtf, Bf, xf)
-    st = x.new_zeros((b, h, p, n), dtype=torch.float32)
+    st = x.new_zeros((b, h, p, n), dtype=ct)
     prev = []
     for k in range(nc):                              # emit the state BEFORE chunk k
         prev.append(st)
@@ -72,7 +74,7 @@ def ssd_scan_plain(x, dt, A, B, C, D, *, chunk: int = 256,
     prev = torch.stack(prev, dim=1)                  # (b,nc,h,p,n)
     y_inter = torch.einsum("bkcn,bkch,bkhpn->bkchp", Cf, torch.exp(cs), prev)
     y = (y_intra + y_inter).reshape(b, s, h, p)
-    y = y + x.float() * D.float()[None, None, :, None]
+    y = y + x.to(ct) * D.to(ct)[None, None, :, None]
     y = y.to(x.dtype)
     return (y, st) if return_final_state else y
 
@@ -86,22 +88,29 @@ def ssd_scan_bwd_plain(x, dt, A, B, C, D, dy, *, chunk: int = 256):
         return torch.autograd.grad(y, ins, dy)
 
 
-def _check(x, dt, A, B, C, D, chunk: int) -> int:
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
-    b, s, h, p = x.shape
+def supports(x, B, chunk: int) -> bool:
+    """Whether the kernels take these widths: x (b, s, h, p) and B (b, s, n)
+    with p, n <= MAX_DIM, 0 < chunk <= MAX_CHUNK and s % chunk == 0.  With
+    the model's own dt, A, C and D shapes, exactly the shape test of
+    `_check`, which raises for any other shape on the card."""
+    b, s, _, p = x.shape
     n = B.shape[-1]
-    f32 = torch.float32
-    code = _build.check_inputs("ssd_scan", x, (dt, f32), (A, f32), B, C, (D, f32))
-    if (dt.shape != (b, s, h) or A.shape != (h,) or D.shape != (h,)
-            or B.shape != (b, s, n) or C.shape != B.shape
-            or not (0 < p <= MAX_DIM and 0 < n <= MAX_DIM)
-            or not 0 < chunk <= MAX_CHUNK or s % chunk):
+    return (B.shape == (b, s, n) and 0 < p <= MAX_DIM and 0 < n <= MAX_DIM
+            and 0 < chunk <= MAX_CHUNK and s % chunk == 0)
+
+
+def _check(x, dt, A, B, C, D, chunk: int) -> int:
+    b, s, h, _ = x.shape
+    if (not supports(x, B, chunk) or dt.shape != (b, s, h) or A.shape != (h,)
+            or D.shape != (h,) or C.shape != B.shape):
         raise ValueError(f"ssd_scan: unsupported shapes x{tuple(x.shape)} "
                          f"dt{tuple(dt.shape)} A{tuple(A.shape)} B{tuple(B.shape)} "
                          f"C{tuple(C.shape)} D{tuple(D.shape)} chunk {chunk} "
                          f"(n, p <= {MAX_DIM}, chunk <= {MAX_CHUNK}, s % chunk == 0)")
-    return code
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    f32 = torch.float32
+    return _build.check_inputs("ssd_scan", x, (dt, f32), (A, f32), B, C, (D, f32))
 
 
 def _launch_fwd(x, dt, A, B, C, D, chunk: int) -> torch.Tensor:

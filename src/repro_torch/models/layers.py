@@ -108,7 +108,9 @@ def gqa_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
        * train/prefill: cache is None, full self-attention over x; with
          return_kv the new (k, v) come back as the cache content.
        * decode: cache=(k, v), each (B, S, K, Dh); the new k/v are written
-         in place at cache_index and attention runs over the valid prefix.
+         in place at min(cache_index, S - Sq), as JAX's
+         dynamic_update_slice clamps, and attention runs over the first
+         min(cache_index + Sq, S) rows.
     Returns (out, cache or None).
     """
     ct = torch_dtype(cfg.compute_dtype)
@@ -122,14 +124,15 @@ def gqa_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                              block_kv=cfg.attn_block_kv)
         new_cache = (k, v) if return_kv else None
     else:
+        # the reference's dynamic_update_slice: a write past the end of the
+        # cache is clamped to its last Sq rows, and every row stays valid
         ck, cv = cache
-        end = cache_index + x.shape[1]
-        if end > ck.shape[1]:
-            raise ValueError(f"cache of length {ck.shape[1]} cannot take "
-                             f"positions up to {end}")
-        ck[:, cache_index:end] = k
-        cv[:, cache_index:end] = v
-        out = kops.attention(q, ck, cv, causal=False, kv_valid_len=end,
+        Sq, Skv = x.shape[1], ck.shape[1]
+        start = min(cache_index, Skv - Sq)
+        ck[:, start:start + Sq] = k
+        cv[:, start:start + Sq] = v
+        out = kops.attention(q, ck, cv, causal=False,
+                             kv_valid_len=min(cache_index + Sq, Skv),
                              block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv)
         new_cache = (ck, cv)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(ct))

@@ -1,9 +1,15 @@
 """Batched serving engine for on-demand jobs (PyTorch port).
 
 Counterpart of `repro.serving.engine`: requests are grouped into one
-left-padded batch, prefilled once, then decoded greedily step by step over a
-cache allocated at `max_seq`; finished sequences stop collecting tokens.
-This is the execution payload of the paper's *on-demand* job class.
+left-padded batch, prefilled once, then decoded greedily step by step;
+finished sequences stop collecting tokens.  This is the execution payload
+of the paper's *on-demand* job class.
+
+The cache follows the reference's `_grow`: it is `max_seq` long when the
+prompt length S is the largest axis of the (L, B, S, K, Dh) prefill cache,
+and stays S long otherwise.  Then every decode step writes its k/v into the
+last row (`models.layers.gqa_fwd`, as JAX's `dynamic_update_slice` clamps),
+so short prompts give the reference's tokens too.
 
 As in the reference, pads are token 0 and prefill and decode attend to them
 (the prompt is not masked), so the port's tokens equal the reference's.
@@ -44,7 +50,7 @@ class Request:
 
 
 class ServeEngine:
-    """Greedy batched decoding over a fixed max_seq cache on `device`.
+    """Greedy batched decoding on `device`, for at most max_seq positions.
     params must already live on that device."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_seq: int = 512,
@@ -66,12 +72,14 @@ class ServeEngine:
         toks = np.zeros((B, S), np.int64)
         for i, r in enumerate(requests):
             toks[i, S - lens[i]:] = r.prompt    # left-pad to align last token
-        logits, pre = prefill(self.params, torch.from_numpy(toks).to(self.device),
-                              self.cfg)
-        cache = init_cache(self.cfg, B, self.max_seq, self.device)
-        for full, part in zip(cache["layers"], pre["layers"]):
-            full[:, :, :S] = part
-        del pre
+        logits, cache = prefill(self.params, torch.from_numpy(toks).to(self.device),
+                                self.cfg)
+        if S < self.max_seq and S == max(cache["layers"][0].shape):
+            pre = cache
+            cache = init_cache(self.cfg, B, self.max_seq, self.device)
+            for full, part in zip(cache["layers"], pre["layers"]):
+                full[:, :, :S] = part
+            del pre
         next_tok = logits.argmax(dim=-1)
         first = next_tok.tolist()
         live = np.ones((B,), bool)

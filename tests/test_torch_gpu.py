@@ -247,6 +247,24 @@ def test_ssd_scan_bwd_bf16_dA_over_draws(cuda, seed):
         assert _rel(gr, r) < 2e-2, (name, _rel(gr, r))
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_ssd_scan_bwd_f32_at_the_models_decay_against_f64(cuda, seed):
+    """The f32 backward keeps the chunk cumsum, the row and column sums of
+    the gated terms and their reverse cumsum in f64: at the model's decay
+    its six gradients stay within 1e-5 of the plain version computed in f64
+    (the plain version in f32 is itself off by more than that there)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    b, s, h, p, n, chunk = 1, 1024, 8, 64, 64, 256
+    x, dy = (torch.randn((b, s, h, p), generator=g, device=cuda) for _ in range(2))
+    B, C = (torch.randn((b, s, n), generator=g, device=cuda) for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g, device=cuda))
+    A, D = -torch.linspace(1.0, 16.0, h, device=cuda), torch.ones(h, device=cuda)
+    got = ssd._launch_bwd(x, dt, A, B, C, D, dy, chunk)
+    ref = ssd.ssd_scan_bwd_plain(*(t.double() for t in (x, dt, A, B, C, D, dy)), chunk=chunk)
+    for name, gr, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, ref):
+        assert _rel(gr, r) < 1e-5, (name, _rel(gr, r))
+
+
 def test_ssd_scan_bwd_bf16_is_deterministic(cuda):
     """The bf16 backward sums its partials in a fixed order, no atomics: two
     calls give the same bits, at zamba2's widths (TMA tiles, heads in
@@ -358,3 +376,92 @@ def test_ssd_kernel_rejects_unsupported_widths(cuda):
         ssd.ssd_scan(x, dt, A, B, C, D, chunk=32)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         ops.ssd_scan(x[..., :16], dt, A, B, C, D, chunk=32, return_final_state=True)
+
+
+# --- the live seam on the card ----------------------------------------------
+# tests/test_runtime.py's SMALL_CFG: d_head 16, a width no kernel takes
+SMALL = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4, n_kv=2,
+             d_ff=128, vocab=256, tie_embeddings=True, param_dtype="float32",
+             compute_dtype="float32", attn_block_q=32, attn_block_kv=32)
+
+
+def _launch_counts():
+    return (fa.flash_attention.launches, fa._launch_bwd.launches,
+            fd.flash_decode.launches, ssd.ssd_scan.launches, ssd._launch_bwd.launches)
+
+
+def _to(tree, device):
+    """A copy of tree on device (a train step updates its params in place)."""
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device, copy=True)
+            for k, v in tree.items()}
+
+
+def test_head_dim_16_on_the_card_raises_before_any_launch(cuda):
+    """No kernel takes d_head 16 and `ops` gives way to no plain version on
+    the card: a train step and a serve of SMALL_CFG raise `ValueError`
+    before any launch (the runtime contracts at that width run on the CPU,
+    tests/test_torch_runtime.py)."""
+    from repro_torch.models import ModelConfig, init_params
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.training import (AdamW, make_train_state, make_train_step,
+                                      synthetic_batch)
+
+    cfg = ModelConfig(**SMALL)
+    assert cfg.d_head == 16
+    opt = AdamW(lr=1e-3, eps=1e-3, warmup=1, total_steps=4)
+    params = init_params(cfg, seed=0, device="cuda")
+    n0 = _launch_counts()
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        make_train_step(cfg, opt)(make_train_state(_to(params, "cuda"), opt),
+                                  synthetic_batch(cfg, 4, 32, device="cuda"))
+    reqs = [Request(rid=0, prompt=np.arange(12, dtype=np.int32), max_new_tokens=4)]
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        ServeEngine(cfg, params, max_seq=64, device="cuda").serve_batch(reqs)
+    torch.cuda.synchronize()
+    assert _launch_counts() == n0
+
+
+def test_elastic_job_preempt_and_resume_on_the_card(cuda, tmp_path):
+    """Reduced zamba2 (every training kernel) on the card: a malleable
+    preempt checkpoints the exact step and moves the state to the host; a
+    fresh job resumes on the card with the params bit for bit."""
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.runtime import ElasticJob
+    from repro_torch.runtime.elastic import _state_leaves
+
+    cfg = reduced("zamba2_1p2b").with_(param_dtype="bfloat16", compute_dtype="bfloat16")
+    job = ElasticJob(3, cfg, batch=2, seq=64, ckpt_dir=str(tmp_path), ckpt_every=100)
+    n0 = _launch_counts()
+    job.start([cuda] * 2)
+    losses = [job.step()["loss"] for _ in range(3)]
+    assert all(np.isfinite(losses))
+    fwd, bwd, _, ssd_fwd, ssd_bwd = (a - b for a, b in zip(_launch_counts(), n0))
+    assert min(fwd, bwd, ssd_fwd, ssd_bwd) > 0
+    job.resize([cuda])
+    assert job.resize_costs[-1] >= 0
+    at_preempt = [t.clone() for t in _state_leaves(job.state.params)]
+    assert all(t.is_cuda for t in at_preempt)
+    job.preempt(warning=True)
+    assert all(t.device.type == "cpu" for t in _state_leaves(job.state))
+    job2 = ElasticJob(3, cfg, batch=2, seq=64, ckpt_dir=str(tmp_path))
+    job2.resume([cuda] * 3)
+    assert job2.step_idx == 3
+    restored = _state_leaves(job2.state.params)
+    assert all(t.is_cuda for t in restored)
+    assert all(torch.equal(a, b) for a, b in zip(at_preempt, restored))
+    assert np.isfinite(job2.step()["loss"])
+
+
+def test_elastic_cluster_reduced_on_the_card(cuda):
+    from repro_torch.launch import elastic_cluster
+
+    n0 = _launch_counts()
+    stats = elastic_cluster.main(["--reduced", "--speed", "inf", "--target-steps", "12",
+                                  "--ckpt-every", "6"])
+    torch.cuda.synchronize()
+    events = [e["event"] for e in stats["cluster_log"]]
+    assert {"od_acquire", "shrink", "expand"} <= set(events)
+    assert all(j["steps_done"] == 12 and all(np.isfinite(j["losses"]))
+               for j in stats["jobs"].values())
+    assert stats["device"].startswith("cuda")
+    assert all(a > b for a, b in zip(_launch_counts(), n0))

@@ -22,6 +22,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -207,6 +208,75 @@ def test_cpu_calls_launch_no_kernel():
     ops.attention(q, k, v)
     ops.attention(q[:, :1], k, v, kv_valid_len=9)
     assert (fa.flash_attention.launches, fd.flash_decode.launches) == before
+
+
+def _shape_refused(check, *args) -> bool:
+    """Whether `check` (a kernel's input check) refuses these CPU tensors
+    for their shapes.  Its shape test comes first; a shape that passes it
+    fails later for the device (no card here), which is not a refusal."""
+    try:
+        check(*args)
+    except ValueError as e:
+        return "unsupported shapes" in str(e)
+    except (AssertionError, RuntimeError):  # torch.cuda without a card
+        return False
+    return False
+
+
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 128, 256])
+@pytest.mark.parametrize("H,K,Bk,Dv", [(4, 4, 2, None), (4, 2, 2, None), (4, 3, 2, None),
+                                       (6, 4, 2, None), (4, 2, 1, None), (4, 2, 2, 32)])
+def test_flash_attention_supports_is_its_check(D, H, K, Bk, Dv):
+    q, k = torch.zeros((2, 8, H, D)), torch.zeros((Bk, 8, K, D))
+    v = torch.zeros((Bk, 8, K, Dv or D))
+    ok = fa.supports(q, k, v)
+    assert ok == (not _shape_refused(fa._check, "flash_attention", q, k, v))
+    assert ok == (D in (32, 64, 128) and H % K == 0 and Bk == 2 and (Dv or D) == D)
+
+
+@pytest.mark.parametrize("D,Dv", [(16, 16), (32, 32), (64, 128), (128, 32), (48, 64),
+                                  (64, 16), (256, 256)])
+@pytest.mark.parametrize("sq,H,K", [(1, 8, 2), (1, 8, 8), (1, 6, 4), (2, 8, 2)])
+def test_flash_decode_supports_is_its_check(D, Dv, sq, H, K):
+    q, k, v = torch.zeros((2, sq, H, D)), torch.zeros((2, 16, K, D)), torch.zeros((2, 16, K, Dv))
+    ok = fd.supports(q, k, v)
+    assert ok == (not _shape_refused(fd._validate, q, k, v))
+    assert ok == (sq == 1 and H % K == 0 and D in (32, 64, 128) and Dv in (32, 64, 128))
+
+
+@pytest.mark.parametrize("p,n", [(16, 8), (64, 64), (80, 16), (32, 65), (1, 1)])
+@pytest.mark.parametrize("s,chunk", [(64, 32), (96, 64), (2048, 1024), (4096, 2048),
+                                     (64, 0)])
+def test_ssd_scan_supports_is_its_check(p, n, s, chunk):
+    b, h = 1, 2
+    x, dt = torch.zeros((b, s, h, p)), torch.zeros((b, s, h))
+    B = C = torch.zeros((b, s, n))
+    A = D = torch.zeros((h,))
+    ok = ssd.supports(x, B, chunk)
+    assert ok == (not _shape_refused(ssd._check, x, dt, A, B, C, D, chunk))
+    assert ok == (p <= 64 and n <= 64 and 0 < chunk <= 1024 and s % chunk == 0)
+
+
+def test_ops_takes_the_plain_path_for_unsupported_shapes_on_the_cpu():
+    """On a CPU tensor, head dim 16 and SSD widths over 64 (which the
+    kernels refuse on the card) take the plain versions, launching nothing."""
+    (_, _, _), (q, k, v) = _inputs(3, "float32", (1, 16, 2, 16), (1, 16, 1, 16),
+                                   (1, 16, 1, 16))
+    assert not fa.supports(q, k, v) and not fd.supports(q[:, :1], k, v)
+    assert _err(ref.naive_attention(q, k, v, causal=True).numpy(), ops.attention(q, k, v)) == 0
+    assert _err(ref.naive_attention(q[:, :1], k, v, kv_valid_len=9).numpy(),
+                ops.attention(q[:, :1], k, v, kv_valid_len=9)) == 0
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((1, 64, 2, 80)).astype(np.float32))
+    dt = torch.from_numpy(np.abs(rng.standard_normal((1, 64, 2))).astype(np.float32) * 0.1)
+    B, C = (torch.from_numpy(rng.standard_normal((1, 64, 8)).astype(np.float32))
+            for _ in range(2))
+    A, D = -torch.ones(2), torch.ones(2)
+    assert not ssd.supports(x, B, 32)
+    before = ssd.ssd_scan.launches
+    y = ops.ssd_scan(x, dt, A, B, C, D, chunk=32)
+    assert ssd.ssd_scan.launches == before
+    assert _err(ssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=32).numpy(), y) == 0
 
 
 def test_wrapper_refuses_devices_without_a_kernel():

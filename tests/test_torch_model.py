@@ -121,12 +121,27 @@ def test_gqa_prefill_and_decode_match_jax(rigs, arch):
 
 
 def test_gqa_decode_refuses_a_full_cache(rigs):
-    _, cfg, _, tp = _rig(rigs, "llama3_8b")
-    ta = {k: v[0] for k, v in tp["layers"]["attn"].items()}
-    cache = (torch.zeros(1, 4, cfg.n_kv, cfg.d_head), torch.zeros(1, 4, cfg.n_kv, cfg.d_head))
-    with pytest.raises(ValueError, match="cannot take"):
-        layers.gqa_fwd(ta, torch.zeros(1, 1, cfg.d_model), cfg,
-                       positions=torch.full((1, 1), 4), cache=cache, cache_index=4)
+    """A decode write past the end of a full cache is the reference's
+    `dynamic_update_slice`: clamped to the last row, every row valid (what
+    `ServeEngine` meets with a prompt-long cache), not an error."""
+    jcfg, cfg, jp, tp = _rig(rigs, "llama3_8b")
+    ja, ta = _layer0(jp, tp, "attn")
+    rng = np.random.default_rng(5)
+    k, v = (rng.standard_normal((1, 4, cfg.n_kv, cfg.d_head)).astype(np.float32)
+            for _ in range(2))
+    x = rng.standard_normal((1, 1, cfg.d_model)).astype(np.float32)
+    for index in (3, 4, 6):
+        jo, (jk, jv) = jlayers.gqa_fwd(ja, jnp.asarray(x), jcfg,
+                                       positions=jnp.full((1, 1), index, jnp.int32),
+                                       cache=(jnp.asarray(k), jnp.asarray(v)),
+                                       cache_index=index)
+        to, (tk, tv) = layers.gqa_fwd(ta, torch.from_numpy(x), cfg,
+                                      positions=torch.full((1, 1), index),
+                                      cache=(torch.from_numpy(k.copy()),
+                                             torch.from_numpy(v.copy())),
+                                      cache_index=index)
+        for j, t in ((jo, to), (jk, tk), (jv, tv)):
+            _close(j, t)
 
 
 @pytest.mark.parametrize("arch", DENSE)

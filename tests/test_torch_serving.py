@@ -38,9 +38,8 @@ def engines():
             ServeEngine(cfg, tp, max_seq=64, device="cpu"))
 
 
-# Prompts are longer than d_head (16): the reference grows its prefill cache
-# to max_seq only when the sequence axis is the largest one (`_grow`), and
-# otherwise writes every decoded token into the last row (see ROADMAP queue 3).
+# Prompts are longer than d_head (16), so the reference grows its prefill
+# cache to max_seq (`_grow` pads the sequence axis when it is the largest one).
 @pytest.mark.parametrize("lens,max_new", [((17, 19, 21), 8), ((24, 17), 12),
                                           ((20, 20, 20, 20), 5)])
 def test_greedy_tokens_equal_jax(engines, lens, max_new):
@@ -55,6 +54,28 @@ def test_greedy_tokens_equal_jax(engines, lens, max_new):
     for r in reqs:
         assert len(r.tokens_out) == max_new
         assert r.submitted_at <= r.first_token_at <= r.done_at
+
+
+# d_head 32: with prompts shorter than that the reference keeps the cache at
+# the prompt's length and writes each decoded token into its last row.
+SHORT_CFG = dict(CFG, d_model=128, vocab=256)
+
+
+@pytest.mark.parametrize("lens,max_new", [((8, 13, 21), 10), ((31,), 6),
+                                          ((9, 30, 17, 12), 8), ((32, 25), 5)])
+def test_greedy_tokens_equal_jax_for_prompts_shorter_than_d_head(lens, max_new):
+    jcfg, cfg = JModelConfig(**SHORT_CFG), ModelConfig(**SHORT_CFG)
+    assert cfg.d_head == 32
+    jp = jinit_params(jax.random.PRNGKey(1), jcfg)
+    tp = from_jax_params(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    rng = np.random.default_rng(sum(lens))
+    prompts = [rng.integers(0, 256, n, dtype=np.int32) for n in lens]
+    jreqs = [JRequest(rid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
+    JServeEngine(jcfg, jp, max_seq=64).serve_batch(jreqs)
+    ServeEngine(cfg, tp, max_seq=64, device="cpu").serve_batch(reqs)
+    assert [r.tokens_out for r in reqs] == [r.tokens_out for r in jreqs]
+    assert all(len(r.tokens_out) == max_new for r in reqs)
 
 
 def test_eos_stops_a_request(engines):

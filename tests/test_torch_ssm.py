@@ -114,6 +114,22 @@ def test_ssd_scan_plain_matches_jax(s, chunk, dtype, against):
     assert _rel(jy, y) < DTYPES[dtype][2]
 
 
+def test_ssd_scan_plain_computes_f64_inputs_in_f64():
+    """f64 inputs stay f64 through the plain version and its backward (the
+    card tests' exact reference for the f32 kernels); the result is the
+    reference's naive SSD, and the f32 plain version's within its rounding."""
+    arrs = _ssd_np(7)
+    ins = [torch.from_numpy(a).double() for a in arrs]
+    y = ssd.ssd_scan_plain(*ins, chunk=32)
+    assert y.dtype == torch.float64
+    jy = _jit(jref.naive_ssd, *(jnp.asarray(a) for a in arrs))
+    assert _rel(jy, y) < DTYPES["float32"][2]
+    assert float((ssd.ssd_scan_plain(*(t.float() for t in ins), chunk=32) - y).abs().max()) \
+        < 1e-5 * float(y.abs().max())
+    grads = ssd.ssd_scan_bwd_plain(*ins, torch.ones_like(y), chunk=32)
+    assert all(g.dtype == torch.float64 for g in grads)
+
+
 # --- the bf16 kernel's chunk-parallel split, in plain torch -----------------
 def _ssd_split(x, dt, A, B, C, D, chunk, bf16_points=False):
     """The SSD forward decomposed as csrc/ssd_scan_fwd.cu computes it (Dao &
