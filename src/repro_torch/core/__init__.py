@@ -11,9 +11,9 @@ only their imports pointing into `repro_torch`:
 The policy registry is the port's own: a policy registered with
 `repro.core.policy.register_policy` is not seen here, and one registered
 with `repro_torch.core.policy.register_policy` is not seen by `repro`.
-The fault models, the workload registry, the metrics and the experiment
-sweeps come with later slices (ROADMAP queue 1); a `SimConfig` with a
-fault model raises.
+The fault models a `SimConfig` may name are the port's copy of
+`repro.faults`, `repro_torch.faults`.  The workload registry, the metrics
+and the experiment sweeps come with a later slice (ROADMAP queue 1).
 
 Public API:
     JobSpec / JobType / NoticeKind / RunState   job model (paper §III-A)

@@ -173,11 +173,19 @@ class Simulator:
         # much longer) fault-event horizon
         self.avail_at_completion = 0.0
         if cfg.faults not in (None, "none"):
-            # the fault models (the reference's repro.faults) are not
-            # copied yet; fault-free runs never reach them
-            raise NotImplementedError(
-                f"fault model {cfg.faults!r}: fault models are not ported "
-                f"yet (ROADMAP queue 1, fault models)")
+            from ..faults import resolve_faults
+            model = resolve_faults(cfg.faults)
+            if model.name != "none":
+                import numpy as np
+                self._faults_on = True
+                self.fault_model_name = model.name
+                self.fault_model = model
+                self._fault_rng = np.random.default_rng([model.seed, 0xD01D])
+                for i, ev in enumerate(model.events(cfg.n_nodes)):
+                    heapq.heappush(
+                        self._heap,
+                        (ev.t, self._FAULT_SEQ_BASE + i,
+                         "node_" + ev.kind, (ev.node,)))
         self.ops = SchedulerOps(self)        # the handle policies act through
         self._queue_key = self.policies.queue.make_order_key(self.ops)
         self.queue.configure(self._queue_key,

@@ -156,7 +156,7 @@ __global__ void __launch_bounds__(kThreads)
 ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ A, const T* __restrict__ Bm,
                const T* __restrict__ Cm, const float* __restrict__ D, T* __restrict__ y,
-               int S, int H, int N, int P, int chunk) {
+               float* __restrict__ fin, int S, int H, int N, int P, int chunk) {
   extern __shared__ float sm[];
   float* St = sm;           // state entering the chunk: rows n, columns p
   float* Ct = St + kTile;   // C rows of the t tile
@@ -271,6 +271,10 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     }
     advance_state(St, Bu, Xu, cs, dts, Bb + (size_t)c0 * N, xb + (size_t)c0 * xs, xs, N, P,
                   chunk);
+  }
+  if (fin) {  // the state after the last token, (b, h, p, n)
+    float* out = fin + ((size_t)b * H + h) * P * N;
+    for (int e = threadIdx.x; e < N * P; e += kThreads) out[e] = St[(e % N) * kS + e / N];
   }
 }
 
@@ -647,8 +651,8 @@ size_t bwd_smem(int chunk) {
 
 template <typename T>
 cudaError_t launch_fwd(const void* x, const void* dt, const void* A, const void* B,
-                       const void* C, const void* D, void* y, int b, int s, int h, int p, int n,
-                       int chunk, cudaStream_t stream) {
+                       const void* C, const void* D, void* y, void* fin, int b, int s, int h,
+                       int p, int n, int chunk, cudaStream_t stream) {
   const size_t smem = fwd_smem(chunk);
   auto kern = ssd_fwd_kernel<T>;
   cudaError_t err =
@@ -657,7 +661,7 @@ cudaError_t launch_fwd(const void* x, const void* dt, const void* A, const void*
   kern<<<dim3(h, b), kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const T*>(B), static_cast<const T*>(C), static_cast<const float*>(D),
-      static_cast<T*>(y), s, h, n, p, chunk);
+      static_cast<T*>(y), static_cast<float*>(fin), s, h, n, p, chunk);
   return cudaGetLastError();
 }
 
@@ -689,15 +693,16 @@ bool bad_shape(int b, int s, int h, int p, int n, int chunk) {
 }  // namespace repro_torch
 
 // float32 only (bf16: ssd_scan_fwd.cu).  x: (b, s, h, p) and B, C: (b, s, n);
-// dt: (b, s, h), A, D: (h,); y: (b, s, h, p).  All contiguous.  n, p <= 64,
+// dt: (b, s, h), A, D: (h,); y: (b, s, h, p); `fin`, null or (b, h, p, n):
+// the state after the last token.  All contiguous.  n, p <= 64,
 // s % chunk == 0, chunk <= 1024.  Launches on `stream`, allocates nothing,
 // returns the cudaError_t of the launch.
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A, const void* B,
-                            const void* C, const void* D, void* y, int b, int s, int h, int p,
-                            int n, int chunk, int dtype, void* stream) {
+                            const void* C, const void* D, void* y, void* fin, int b, int s,
+                            int h, int p, int n, int chunk, int dtype, void* stream) {
   using namespace repro_torch;
   if (bad_shape(b, s, h, p, n, chunk) || dtype != kFloat32) return cudaErrorInvalidValue;
-  return launch_fwd<float>(x, dt, A, B, C, D, y, b, s, h, p, n, chunk,
+  return launch_fwd<float>(x, dt, A, B, C, D, y, fin, b, s, h, p, n, chunk,
                            static_cast<cudaStream_t>(stream));
 }
 

@@ -21,7 +21,8 @@
 //      (b, nc, h, n, p), and cs_last into (b, nc, h);
 //   2. ssd_pass, one thread per (batch, head, state element): S_k =
 //      exp(cs_last) S_{k-1} + s_k over the chunks in order, in f32, each
-//      S_{k-1} written in bf16 for the scan;
+//      S_{k-1} written in bf16 for the scan, and on request the final state
+//      S_nc in f32 (hybrid prefill hands it to decode);
 //   3. ssd_scan_sm90, one CTA per (head, chunk, block of four 64-row t tiles,
 //      batch), two warpgroups taking two t tiles each, the B and x tiles of
 //      u loaded once for the four: acc = exp(cs_t) (C_t . S_{k-1}) on wgmma,
@@ -169,10 +170,12 @@ ssd_state_sm90(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__
 // One thread per (batch, head, state element): S_k = exp(total_k) S_{k-1}
 // + s_k over the chunks in order, in f32; S_{k-1}, the state entering chunk
 // k, is written in bf16 (the scan's operand, rounded where the scan would
-// round it).  The loads of 8 chunks are issued together.
+// round it).  The loads of 8 chunks are issued together.  With `fin` set,
+// the state after the last chunk is written there in f32, (b, h, p, n).
 __global__ void __launch_bounds__(256)
 ssd_pass(const float* __restrict__ states, const float* __restrict__ totals,
-         bf16* __restrict__ sprev, int nc, int H, int NP) {
+         bf16* __restrict__ sprev, float* __restrict__ fin, int nc, int H, int N, int P) {
+  const int NP = N * P;
   const int e = blockIdx.x * blockDim.x + threadIdx.x, h = blockIdx.y, b = blockIdx.z;
   if (e >= NP) return;
   float run = 0.f;
@@ -191,6 +194,7 @@ ssd_pass(const float* __restrict__ states, const float* __restrict__ totals,
       run = fmaf(run, dv[i], sv[i]);
     }
   }
+  if (fin) fin[(((size_t)b * H + h) * P + e % P) * N + e / P] = run;  // e = n * P + p
 }
 
 // ---------------------------------------------------- 3. chunk scan
@@ -397,13 +401,14 @@ constexpr int scan_smem(int chunk) {
 // bfloat16 only.  x: (b, s, h, p) and B, C: (b, s, n) in bf16; dt: (b, s, h),
 // A, D: (h,) in float32; y: (b, s, h, p) in bf16; scratch: states, f32,
 // and sprev, bf16, of b * (s / chunk) * h * n * p elements each, totals,
-// f32, of b * (s / chunk) * h.  All contiguous, 16-byte aligned.  n, p <= 64,
+// f32, of b * (s / chunk) * h.  `fin`, null or f32 (b, h, p, n): the state
+// after the last token.  All contiguous, 16-byte aligned.  n, p <= 64,
 // s % chunk == 0, chunk <= 1024.  Launches three kernels on `stream`,
 // allocates nothing, returns the cudaError_t of the launches.
 extern "C" int ssd_scan_fwd_sm90(const void* x, const void* dt, const void* A, const void* B,
                                  const void* C, const void* D, void* y, void* states,
-                                 void* sprev, void* totals, int b, int s, int h, int p, int n,
-                                 int chunk, void* stream) {
+                                 void* sprev, void* totals, void* fin, int b, int s, int h,
+                                 int p, int n, int chunk, void* stream) {
   using namespace repro_torch;
   const int nc = chunk > 0 ? s / chunk : 0, n_t = (chunk + kT - 1) / kT;
   const int n_tb = (n_t + kTB - 1) / kTB;
@@ -440,7 +445,8 @@ extern "C" int ssd_scan_fwd_sm90(const void* x, const void* dt, const void* A, c
   ssd_state_sm90<<<dim3(h, nc, b), kWG, kStateSmem, st>>>(tm_x, tm_b, xb, dtf, Af, Bb, sf, tf, s,
                                                           h, n, p, chunk, use_tma);
   auto* sp = static_cast<bf16*>(sprev);
-  ssd_pass<<<dim3((n * p + 255) / 256, h, b), 256, 0, st>>>(sf, tf, sp, nc, h, n * p);
+  ssd_pass<<<dim3((n * p + 255) / 256, h, b), 256, 0, st>>>(sf, tf, sp, static_cast<float*>(fin),
+                                                           nc, h, n, p);
   ssd_scan_sm90<<<dim3(h, nc * n_tb, b), kScanWG * kWG, scan_smem(chunk), st>>>(
       tm_x, tm_b, tm_c, tm_s, xb, dtf, Af, Bb, static_cast<const bf16*>(C),
       static_cast<const float*>(D), sp, static_cast<bf16*>(y), s, h, n, p, chunk, use_tma);

@@ -7,7 +7,12 @@ The three dispatch points are the reference's (`ops.py:216`, `:221` and
   * causal self-attention with Sq == Skv (prefill, training)
                                                      -> `flash_attention`;
   * one query token against a cache (`kv_valid_len`) -> `flash_decode`;
-  * the SSD scan without a final state (training)    -> `ssd_scan`.
+  * the SSD scan, with or without its final state (training; hybrid
+    prefill)                                         -> `ssd_scan`.
+
+The reference sends the SSD scan with a final state to its jnp path (its
+Pallas kernel has no state output); the port's kernels write the state as
+one more output, so hybrid prefill runs them too.
 
 The routing rule, decided by shape before any launch:
 
@@ -18,8 +23,9 @@ The routing rule, decided by shape before any launch:
     multiple of it for the SSD scan) raises `ValueError` before any
     launch: no call on the card gives way to a plain version.
 
-Everything else (non-causal and cross attention, Sq != Skv) is plain
-torch, as it is jnp in the reference.  The reference's `_causal_binary` /
+Everything else (non-causal and cross attention, Sq != Skv, and the
+one-token SSD recurrence `ssd_step` of hybrid decode) is plain torch, as it
+is jnp in the reference.  The reference's `_causal_binary` /
 `_rect_chunked` (and `_merge`) exist to keep XLA's FLOP counts exact and
 come with the dry-run slice.
 """
@@ -27,6 +33,8 @@ from __future__ import annotations
 
 import math
 from typing import Optional
+
+import torch
 
 from . import flash_attention as fa
 from . import flash_decode as fd
@@ -64,16 +72,23 @@ def attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
 # ================================================================== SSD scan
 def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256,
              return_final_state: bool = False):
-    """Mamba-2 SSD (matches `ref.naive_ssd`), the reference's dispatch
-    (`ops.py:254-266`): without `return_final_state` the hand-written
-    kernel (its plain version on a CPU tensor; on a CUDA tensor widths it
-    does not `supports` raise).  The kernel does not emit the final
-    state, so on a CUDA tensor `return_final_state` raises (hybrid prefill,
-    ROADMAP queue 1); on the CPU it takes `ssd_scan_plain`."""
-    if not return_final_state:
-        return ssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
-    if x.device.type != "cpu":
-        raise NotImplementedError("ssd_scan with return_final_state has no "
-                                  "kernel yet: ROADMAP queue 1, hybrid serving")
-    return ssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk,
-                              return_final_state=True)
+    """Mamba-2 SSD (matches `ref.naive_ssd`): the hand-written kernel on a
+    CUDA tensor (widths it does not `supports` raise), its plain version on
+    a CPU tensor.  With `return_final_state`, also the f32 (b, h, p, n)
+    state after the last token (prefill -> decode handoff)."""
+    return ssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk,
+                        return_final_state=return_final_state)
+
+
+def ssd_step(state, x_t, dt_t, A, B_t, C_t, D):
+    """One decode step of the SSD recurrence, in f32 (`ops.ssd_step` of the
+    reference).  state: (b, h, p, n) f32; x_t (b, h, p); dt_t (b, h);
+    B_t, C_t (b, n).  Returns (new state, y_t (b, h, p) in x_t's dtype)."""
+    xf = x_t.float()
+    dtf = dt_t.float()
+    decay = torch.exp(dtf * A[None, :])
+    st = state * decay[..., None, None] + torch.einsum(
+        "bhp,bn->bhpn", xf * dtf[..., None], B_t.float())
+    y = torch.einsum("bhpn,bn->bhp", st, C_t.float())
+    y = y + xf * D[None, :, None]
+    return st, y.to(x_t.dtype)

@@ -8,7 +8,9 @@ the chunk-parallel split on the tensor cores: the forward is
 kernels a call), the backward `csrc/ssd_scan_bwd.cu` (six kernels a call;
 it recomputes the states it needs to about 16 bits).  In f32 both are
 `csrc/ssd_scan.cu` (one CTA per (head, batch) looping over the chunks).  A
-`torch.autograd.Function` joins them.
+`torch.autograd.Function` joins them.  On request the forward kernels also
+write the f32 (b, h, p, n) state after the last token (hybrid prefill hands
+it to decode), as `_ssd_jnp(..., return_final_state=True)` returns it.
 
 A CUDA tensor launches the kernels (or the wrapper raises); a CPU tensor
 takes `ssd_scan_plain`, the port of `_ssd_jnp`, and autograd through it.
@@ -24,8 +26,8 @@ from . import _build
 
 MAX_DIM = 64  # the kernels take n, p <= 64
 MAX_CHUNK = 1024
-_FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_SM90_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_SM90_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _SM90_BWD_ARGTYPES = [ctypes.c_void_p] * 30 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 HEADS_PER_GROUP = 8  # heads a bf16 backward CTA sums dB and dC over
@@ -113,13 +115,18 @@ def _check(x, dt, A, B, C, D, chunk: int) -> int:
     return _build.check_inputs("ssd_scan", x, (dt, f32), (A, f32), B, C, (D, f32))
 
 
-def _launch_fwd(x, dt, A, B, C, D, chunk: int) -> torch.Tensor:
+def _launch_fwd(x, dt, A, B, C, D, chunk: int, final_state: bool = False):
+    """y, or (y, the f32 (b, h, p, n) state after the last token) with
+    final_state, on CUDA tensors."""
     code = _check(x, dt, A, B, C, D, chunk)
     b, s, h, p = x.shape
     n = B.shape[-1]
     y = torch.empty_like(x)
+    fin = torch.empty((b, h, p, n), device=x.device, dtype=torch.float32) \
+        if final_state else None
     ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             D.data_ptr(), y.data_ptr())
+    fin_ptr = fin.data_ptr() if final_state else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if x.dtype == torch.bfloat16:  # the chunk-parallel tensor-core split
@@ -128,14 +135,17 @@ def _launch_fwd(x, dt, A, B, C, D, chunk: int) -> torch.Tensor:
             sprev = torch.empty_like(states, dtype=torch.bfloat16)
             totals = torch.empty((b, s // chunk, h), **f32)
             fn = _build.load("ssd_scan_fwd", "ssd_scan_fwd_sm90", _SM90_ARGTYPES)
-            err = fn(*ptrs, states.data_ptr(), sprev.data_ptr(), totals.data_ptr(), b, s, h,
-                     p, n, chunk, stream)
+            err = fn(*ptrs, states.data_ptr(), sprev.data_ptr(), totals.data_ptr(), fin_ptr,
+                     b, s, h, p, n, chunk, stream)
         else:
             fn = _build.load("ssd_scan", "ssd_scan_fwd", _FWD_ARGTYPES)
-            err = fn(*ptrs, b, s, h, p, n, chunk, code, stream)
+            err = fn(*ptrs, fin_ptr, b, s, h, p, n, chunk, code, stream)
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
     ssd_scan.launches += 1
+    if final_state:
+        ssd_scan.final_state_launches += 1
+        return y, fin
     return y
 
 
@@ -207,33 +217,40 @@ def _fresh(t: torch.Tensor) -> torch.Tensor:
 
 class _SSDScan(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dt, A, B, C, D, chunk):
+    def forward(ctx, x, dt, A, B, C, D, chunk, final_state):
         ins = [_fresh(t) for t in (x, dt, A, B, C, D)]
         ctx.save_for_backward(*ins)
         ctx.chunk = chunk
-        return _launch_fwd(*ins, chunk)
+        out = _launch_fwd(*ins, chunk, final_state)
+        if final_state:  # the state seeds decode, which takes no gradient
+            ctx.mark_non_differentiable(out[1])
+        return out
 
     @staticmethod
-    def backward(ctx, dy):
+    def backward(ctx, dy, *_):
         grads = _launch_bwd(*ctx.saved_tensors, _fresh(dy), ctx.chunk)
-        return (*grads, None)
+        return (*grads, None, None)
 
 
-def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256) -> torch.Tensor:
+def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256, return_final_state: bool = False):
     """x (b, s, h, p) and B, C (b, s, n) in float32 or bfloat16; dt (b, s, h),
     A (h,) and D (h,) in float32.  s must divide by min(chunk, s).  Returns
-    y (b, s, h, p) in x's dtype, differentiable in all six inputs."""
+    y (b, s, h, p) in x's dtype, differentiable in all six inputs; with
+    return_final_state, (y, the f32 (b, h, p, n) state after the last
+    token), the state not differentiable."""
     s = x.shape[1]
     c = min(chunk, s)
     assert s % c == 0, f"seq {s} not divisible by chunk {c}"
     if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, A, B, C, D, chunk=c)
+        return ssd_scan_plain(x, dt, A, B, C, D, chunk=c,
+                              return_final_state=return_final_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
-    return _SSDScan.apply(x, dt, A, B, C, D, c)
+    return _SSDScan.apply(x, dt, A, B, C, D, c, return_final_state)
 
 
 ssd_scan.launches = 0      # forward calls that launched kernels since the last reset
                            # (one a call: bf16 launches three kernels, f32 one)
+ssd_scan.final_state_launches = 0  # those of them that wrote the final state
 _launch_bwd.launches = 0   # backward calls that launched kernels since the last reset
                            # (one a call: bf16 launches six kernels, f32 one)

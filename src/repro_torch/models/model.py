@@ -5,15 +5,18 @@ The port's counterpart of `repro.models.model` for two families:
   dense  : [GQA attention + SwiGLU] blocks with pre-RMSNorm; trained,
            prefilled and decoded.
   hybrid : a Mamba-2 stack with one *shared-weight* GQA+SwiGLU block
-           applied every `attn_every` layers (Zamba-style); trained.
+           applied every `attn_every` layers (Zamba-style); trained,
+           prefilled and decoded.
 
 Per-layer params are stacked on axis 0 under the reference's keys, and a
-Python loop over layers takes the place of `lax.scan`.  The KV cache is a
-pair of stacked (L, B, S, K, Dh) tensors; `decode_step` writes each layer's
-new row into it in place.
+Python loop over layers takes the place of `lax.scan`.  The dense cache is
+{"layers": (k, v)}, each (L, B, S, K, Dh); the hybrid cache is the
+reference's {"mamba": MambaState of (L, ...) stacks, "attn": (k, v)}, each
+(L // attn_every, B, S, K, Dh), one per application of the shared block.
+`decode_step` writes each layer's new row and state into them in place.
 
-Other families, and serving of the hybrid family, raise
-`NotImplementedError` naming the ROADMAP item (queue 1) that ports them.
+Other families raise `NotImplementedError` naming the ROADMAP item (queue 1)
+that ports them.
 """
 from __future__ import annotations
 
@@ -30,19 +33,14 @@ from .layers import (embed, gqa_fwd, init_embedding, init_gqa, init_rmsnorm,
 Params = Dict[str, Any]
 
 
-def check_family(cfg: ModelConfig, *, hybrid: bool = False) -> None:
-    """Raise unless cfg is a dense GQA model, or a hybrid one where the
-    caller allows it (init, forward, loss: the training path)."""
+def check_family(cfg: ModelConfig) -> None:
+    """Raise unless cfg is a dense GQA model or a hybrid Mamba-2 one."""
     if cfg.moe or cfg.family == "moe":
         item = "MoE"
     elif cfg.mla:
         item = "MLA"
     elif cfg.family == "ssm":
         item = "recurrent families"
-    elif cfg.family == "hybrid":
-        if hybrid:
-            return
-        item = "hybrid serving"
     elif cfg.family in ("vlm", "audio"):
         item = "VLM and audio"
     else:
@@ -86,7 +84,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     """Random params from a seeded `torch.Generator` on `device`, with the
     reference's keys and shapes.  The numbers differ from `jax.random`'s;
     tests carry JAX params over with `convert.from_jax_params`."""
-    check_family(cfg, hybrid=True)
+    check_family(cfg)
     device = torch.device(device)
     gen = None  # the meta device has no generator: shapes only
     if device.type != "meta":
@@ -143,7 +141,7 @@ class TrainBatch(NamedTuple):
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, padded_vocab).  Layers (dense) or
     groups and tail layers (hybrid) are checkpointed as cfg.remat says."""
-    check_family(cfg, hybrid=True)
+    check_family(cfg)
     x = embed(params["embed"], tokens, cfg)
     positions = _positions(tokens.shape[0], 0, tokens.shape[1], tokens.device)
     if cfg.family == "hybrid":
@@ -206,12 +204,22 @@ def loss_fn(params: Params, batch: TrainBatch, cfg: ModelConfig,
 
 # ======================================================== caches + decode step
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
-    """Zero-filled cache {"layers": (k, v)}, each (L, B, max_seq, K, Dh)."""
+    """Zero-filled cache: dense {"layers": (k, v)}, each (L, B, max_seq, K,
+    Dh); hybrid {"mamba": MambaState stacked over the L layers, "attn":
+    (k, v)}, each (L // attn_every, B, max_seq, K, Dh)."""
     check_family(cfg)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv, cfg.d_head)
     ct = torch_dtype(cfg.compute_dtype)
-    return {"layers": (torch.zeros(shape, dtype=ct, device=device),
-                       torch.zeros(shape, dtype=ct, device=device))}
+
+    def kv(n):
+        shape = (n, batch, max_seq, cfg.n_kv, cfg.d_head)
+        return (torch.zeros(shape, dtype=ct, device=device),
+                torch.zeros(shape, dtype=ct, device=device))
+
+    if cfg.family == "hybrid":
+        st = ssm_mod.init_mamba_state(cfg, batch, device)
+        mamba = ssm_mod.MambaState(*(t.new_zeros((cfg.n_layers, *t.shape)) for t in st))
+        return {"mamba": mamba, "attn": kv(cfg.n_layers // cfg.attn_every)}
+    return {"layers": kv(cfg.n_layers)}
 
 
 def decode_step(params: Params, cache, tokens: torch.Tensor, pos: int,
@@ -221,28 +229,81 @@ def decode_step(params: Params, cache, tokens: torch.Tensor, pos: int,
     check_family(cfg)
     x = embed(params["embed"], tokens, cfg)
     positions = _positions(x.shape[0], pos, 1, x.device)
-    ck, cv = cache["layers"]
-    for i in range(cfg.n_layers):
-        x, _ = _block_fwd(_layer(params["layers"], i), x, cfg, positions=positions,
-                          cache=(ck[i], cv[i]), cache_index=pos)
+    if cfg.family == "hybrid":
+        x = _hybrid_decode(params, cache, x, positions, pos, cfg)
+    else:
+        ck, cv = cache["layers"]
+        for i in range(cfg.n_layers):
+            x, _ = _block_fwd(_layer(params["layers"], i), x, cfg, positions=positions,
+                              cache=(ck[i], cv[i]), cache_index=pos)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     logits = unembed(params["embed"], x[:, 0], cfg)[..., :cfg.vocab]
     return logits, cache
 
 
+def _hybrid_decode(params: Params, cache, x, positions, pos: int, cfg: ModelConfig):
+    """The reference's `_hybrid_decode`: each layer's Mamba-2 recurrence
+    from its state in cache["mamba"] (written back in place), the shared
+    block after every `attn_every` layers against its own attention cache,
+    then the tail layers."""
+    mamba = cache["mamba"]
+    ck, cv = cache["attn"]
+    for i in range(cfg.n_layers):
+        d, st = ssm_mod.mamba2_fwd(_layer(params["layers"], i), x, cfg,
+                                   state=ssm_mod.MambaState(*(t[i] for t in mamba)))
+        x = x + d
+        for full, new in zip(mamba, st):
+            full[i].copy_(new)
+        if _shared_block_after(cfg, i):
+            g = i // cfg.attn_every
+            x, _ = _block_fwd(params["shared_attn"], x, cfg, positions=positions,
+                              cache=(ck[g], cv[g]), cache_index=pos)
+    return x
+
+
+def _shared_block_after(cfg: ModelConfig, i: int) -> bool:
+    """Whether the shared block follows Mamba-2 layer i: it closes each full
+    group of `attn_every` layers; the tail layers have none."""
+    k = cfg.attn_every
+    return (i + 1) % k == 0 and i + 1 <= cfg.n_layers // k * k
+
+
 # ---------------------------------------------------------------- prefill
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
-    """Process a full prompt; returns (last-token logits (B, V), cache) with
-    the cache {"layers": (k, v)} of shape (L, B, S, K, Dh)."""
+    """Process a full prompt; returns (last-token logits (B, V), cache), the
+    cache as `init_cache` lays it out, S rows long.  A hybrid prompt longer
+    than one SSD chunk must be a multiple of it, as in the reference."""
     check_family(cfg)
     x = embed(params["embed"], tokens, cfg)
     positions = _positions(tokens.shape[0], 0, tokens.shape[1], tokens.device)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, (k, v) = _block_fwd(_layer(params["layers"], i), x, cfg,
-                               positions=positions, return_kv=True)
-        ks.append(k)
-        vs.append(v)
+    if cfg.family == "hybrid":
+        x, cache = _hybrid_prefill(params, x, positions, cfg)
+    else:
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            x, (k, v) = _block_fwd(_layer(params["layers"], i), x, cfg,
+                                   positions=positions, return_kv=True)
+            ks.append(k)
+            vs.append(v)
+        cache = {"layers": (torch.stack(ks), torch.stack(vs))}
     x = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
     logits = unembed(params["embed"], x[:, 0], cfg)[..., :cfg.vocab]
-    return logits, {"layers": (torch.stack(ks), torch.stack(vs))}
+    return logits, cache
+
+
+def _hybrid_prefill(params: Params, x, positions, cfg: ModelConfig):
+    """The reference's hybrid prefill: every Mamba-2 layer runs the chunked
+    scan and keeps its final state, the shared block after every
+    `attn_every` layers keeps its k/v; the tail layers last."""
+    states, ks, vs = [], [], []
+    for i in range(cfg.n_layers):
+        d, st = ssm_mod.mamba2_fwd(_layer(params["layers"], i), x, cfg, return_state=True)
+        x = x + d
+        states.append(st)
+        if _shared_block_after(cfg, i):
+            x, (kk, vv) = _block_fwd(params["shared_attn"], x, cfg, positions=positions,
+                                     return_kv=True)
+            ks.append(kk)
+            vs.append(vv)
+    mamba = ssm_mod.MambaState(*(torch.stack(t) for t in zip(*states)))
+    return x, {"mamba": mamba, "attn": (torch.stack(ks), torch.stack(vs))}

@@ -1,15 +1,15 @@
-"""Mamba-2 block (the SSM half of the hybrid family), stateless branch.
+"""Mamba-2 block (the SSM half of the hybrid family).
 
 The port's counterpart of the Mamba-2 part of `repro.models.ssm`, with the
-same param dict and layouts.  Training and the hybrid forward run the
-chunked SSD scan (`kernels.ops.ssd_scan`, the hand-written kernel on the
-card).  The recurrent branches (`state` / `return_state`: hybrid prefill
-and decode, `ssd_step`, `init_mamba_state`) and xLSTM come with their
-slices.
+same param dict, layouts and recurrent state (`MambaState`).  Training, the
+hybrid forward and hybrid prefill run the chunked SSD scan
+(`kernels.ops.ssd_scan`, the hand-written kernel on the card; prefill asks
+it for the final state), decode the one-token recurrence `ops.ssd_step`.
+xLSTM comes with its slice.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +19,12 @@ from .config import ModelConfig, torch_dtype
 from .layers import _init, init_rmsnorm, rmsnorm
 
 Params = Dict[str, torch.Tensor]
+
+
+class MambaState(NamedTuple):
+    conv_x: torch.Tensor   # (B, W-1, d_in)
+    conv_bc: torch.Tensor  # (B, W-1, 2*d_state)
+    ssm: torch.Tensor      # (B, H, P, N) f32
 
 
 def init_mamba2(gen: Optional[torch.Generator], cfg: ModelConfig,
@@ -67,11 +73,14 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def mamba2_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-               state=None, return_state: bool = False):
-    """Stateless Mamba-2 block: x (B, S, d) -> (out (B, S, d), None)."""
-    if state is not None or return_state:
-        raise NotImplementedError("mamba2_fwd with a recurrent state is not "
-                                  "ported yet: ROADMAP queue 1, hybrid serving")
+               state: Optional[MambaState] = None, return_state: bool = False
+               ) -> Tuple[torch.Tensor, Optional[MambaState]]:
+    """Mamba-2 block: x (B, S, d) -> (out (B, S, d), new state).
+
+    Without `state`: the chunked scan over the whole sequence; the new state
+    is None, or with `return_state` the conv tails and the SSD state after
+    the last token (prefill).  With `state`: one token (S == 1) through the
+    recurrence (decode), returning the advanced state."""
     s = cfg.ssm
     ct = torch_dtype(cfg.compute_dtype)
     d_in = s.expand * cfg.d_model
@@ -80,15 +89,44 @@ def mamba2_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     z = x @ p["w_z"].to(ct)
     bc = x @ p["w_bc"].to(ct)
     dt = x @ p["w_dt"].to(ct)
-    conv_x, _ = _causal_conv(xi, p["conv_x_w"].to(ct), p["conv_x_b"].to(ct), None)
-    conv_bc, _ = _causal_conv(bc, p["conv_bc_w"].to(ct), p["conv_bc_b"].to(ct), None)
+    conv_x, cx_state = _causal_conv(xi, p["conv_x_w"].to(ct), p["conv_x_b"].to(ct),
+                                    state.conv_x if state is not None else None)
+    conv_bc, cbc_state = _causal_conv(bc, p["conv_bc_w"].to(ct), p["conv_bc_b"].to(ct),
+                                      state.conv_bc if state is not None else None)
     xs = F.silu(conv_x)
     B, C = torch.chunk(F.silu(conv_bc), 2, dim=-1)
     xh = xs.reshape(*xs.shape[:2], nh, s.d_head)
     dt = F.softplus(dt.float() + p["dt_bias"][None, None])
     A = -torch.exp(p["a_log"])
-    y = kops.ssd_scan(xh, dt, A, B, C, p["d_skip"], chunk=s.chunk)
+    if state is None:
+        if return_state:
+            y, ssm = kops.ssd_scan(xh, dt, A, B, C, p["d_skip"], chunk=s.chunk,
+                                   return_final_state=True)
+            new_state = MambaState(conv_x=cx_state, conv_bc=cbc_state, ssm=ssm)
+        else:
+            y = kops.ssd_scan(xh, dt, A, B, C, p["d_skip"], chunk=s.chunk)
+            new_state = None
+    else:
+        ssm, y = kops.ssd_step(state.ssm, xh[:, 0], dt[:, 0], A, B[:, 0], C[:, 0],
+                               p["d_skip"])
+        y = y[:, None]
+        new_state = MambaState(conv_x=cx_state, conv_bc=cbc_state, ssm=ssm)
     y = y.reshape(*y.shape[:2], d_in)
     y = rmsnorm({"scale": p["norm"]}, y * F.silu(z), cfg.norm_eps)
-    return y @ p["w_out"].to(ct), None
+    return y @ p["w_out"].to(ct), new_state
+
+
+def init_mamba_state(cfg: ModelConfig, batch: int, device="cuda") -> MambaState:
+    """Zero state of one Mamba-2 layer: conv tails in the compute dtype, the
+    SSD state in f32."""
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    nh = d_in // s.d_head
+    ct = torch_dtype(cfg.compute_dtype)
+    return MambaState(
+        conv_x=torch.zeros((batch, s.conv_width - 1, d_in), dtype=ct, device=device),
+        conv_bc=torch.zeros((batch, s.conv_width - 1, 2 * s.d_state), dtype=ct,
+                            device=device),
+        ssm=torch.zeros((batch, nh, s.d_head, s.d_state), dtype=torch.float32,
+                        device=device))
 

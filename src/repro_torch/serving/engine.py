@@ -13,6 +13,8 @@ so short prompts give the reference's tokens too.
 
 As in the reference, pads are token 0 and prefill and decode attend to them
 (the prompt is not masked), so the port's tokens equal the reference's.
+Recurrent and hybrid models are refused, as the reference refuses them:
+they serve through `models.prefill` and `models.decode_step` directly.
 """
 from __future__ import annotations
 
@@ -55,6 +57,10 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, params, *, max_seq: int = 512,
                  eos_id: Optional[int] = None, device="cuda"):
+        if cfg.family not in ("dense", "moe", "vlm"):  # the reference's refusal
+            raise NotImplementedError(
+                "ServeEngine drives attention-family LMs; recurrent archs "
+                "serve via decode_step directly")
         check_family(cfg)
         self.cfg = cfg
         self.params = params

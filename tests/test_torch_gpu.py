@@ -370,12 +370,53 @@ def test_flash_attention_without_grad_writes_no_logsumexp(cuda):
 
 
 def test_ssd_kernel_rejects_unsupported_widths(cuda):
+    """p = 128 is over the kernels' 64: with or without the final state the
+    call raises before any launch.  p = 16 they take, state included."""
     x, dt, A, B, C, D = _ssd_inputs(np.random.default_rng(8), 1, 64, 2, 128, 8,
                                     torch.float32, cuda)
+    n0 = (ssd.ssd_scan.launches, ssd.ssd_scan.final_state_launches)
     with pytest.raises(ValueError, match="unsupported"):
         ssd.ssd_scan(x, dt, A, B, C, D, chunk=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        ops.ssd_scan(x[..., :16], dt, A, B, C, D, chunk=32, return_final_state=True)
+    with pytest.raises(ValueError, match="unsupported"):
+        ops.ssd_scan(x, dt, A, B, C, D, chunk=32, return_final_state=True)
+    assert (ssd.ssd_scan.launches, ssd.ssd_scan.final_state_launches) == n0
+    y, st = ops.ssd_scan(x[..., :16], dt, A, B, C, D, chunk=32, return_final_state=True)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.final_state_launches == n0[1] + 1
+    ry, rst = ssd.ssd_scan_plain(x[..., :16], dt, A, B, C, D, chunk=32,
+                                 return_final_state=True)
+    assert _rel(y, ry) < TOL[torch.float32] and _rel(st, rst) < TOL[torch.float32]
+
+
+FINAL_STATE_SHAPES = [  # (b, s, h, p, n, chunk)
+    (2, 64, 8, 32, 16, 32),      # reduced zamba2's 64-token prefill
+    (2, 24, 8, 32, 16, 32),      # a prompt shorter than the chunk
+    (2, 512, 4, 64, 64, 256),    # zamba2-1.2b's widths, two chunks (TMA in bf16)
+    (1, 300, 3, 24, 12, 100),    # ragged tiles, odd widths
+    (2, 128, 4, 64, 16, 32),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", FINAL_STATE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_final_state_kernel_vs_plain(cuda, b, s, h, p, n, chunk, dtype):
+    """The forward kernels' final state (b, h, p, n), f32, and their y, against
+    `ssd_scan_plain(..., return_final_state=True)` in f32 on the same inputs;
+    the state seeds decode and takes no gradient."""
+    x, dt, A, B, C, D = _ssd_inputs(np.random.default_rng(13), b, s, h, p, n, dtype, cuda)
+    n0 = (ssd.ssd_scan.launches, ssd.ssd_scan.final_state_launches)
+    y, st = ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk, return_final_state=True)
+    torch.cuda.synchronize()
+    assert (ssd.ssd_scan.launches, ssd.ssd_scan.final_state_launches) == (n0[0] + 1, n0[1] + 1)
+    ry, rst = ssd.ssd_scan_plain(x.float(), dt, A, B.float(), C.float(), D, chunk=chunk,
+                                 return_final_state=True)
+    assert st.dtype == torch.float32 and st.shape == (b, h, p, n) and y.dtype == dtype
+    assert _rel(y, ry) < TOL[dtype] and _rel(st, rst) < TOL[dtype]
+    # the y of a call without the state is the same launch's y, bit for bit
+    assert torch.equal(ssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk), y)
+    xg = x.detach().requires_grad_(True)
+    y2, st2 = ssd.ssd_scan(xg, dt, A, B, C, D, chunk=chunk, return_final_state=True)
+    assert y2.requires_grad and not st2.requires_grad
 
 
 # --- the live seam on the card ----------------------------------------------
@@ -465,3 +506,44 @@ def test_elastic_cluster_reduced_on_the_card(cuda):
                for j in stats["jobs"].values())
     assert stats["device"].startswith("cuda")
     assert all(a > b for a, b in zip(_launch_counts(), n0))
+
+
+def test_hybrid_serving_reduced_on_the_card(cuda):
+    """Reduced zamba2 in f32 served on the card (ssd_scan with its final
+    state, flash_attention, flash_decode) against the same params on the
+    CPU (the plain versions): prefill logits within 1e-4 and every cache
+    leaf within 1e-4 (atol and rtol, as tests/test_torch_hybrid_serving.py
+    holds the CPU against the reference: the SSD states grow past 1), then
+    8 greedy decode steps with logits within 1e-4 and equal tokens."""
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = reduced("zamba2_1p2b")
+    params = init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (2, 64)))
+    out = {}
+    n0 = _launch_counts()
+    for dev, p in (("cpu", params), ("cuda", _to(params, "cuda"))):
+        logits, cache = prefill(p, toks.to(dev), cfg)
+        # copies: decode_step updates the cache in place
+        pre = (logits.cpu(), [t.cpu().clone() for t in (*cache["mamba"], *cache["attn"])])
+        cache["attn"] = tuple(torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 8))
+                              for c in cache["attn"])
+        tok, steps = logits.argmax(-1), []
+        for i in range(8):
+            logits, cache = decode_step(p, cache, tok[:, None], 64 + i, cfg)
+            tok = logits.argmax(-1)
+            steps.append((logits.cpu(), tok.tolist()))
+        out[dev] = pre, steps
+    torch.cuda.synchronize()
+    (cl, cc), cs = out["cpu"]
+    (gl, gc), gs = out["cuda"]
+    assert _err(gl, cl) < 1e-4
+    for name, g, c in zip(("conv_x", "conv_bc", "ssm", "k", "v"), gc, cc):
+        torch.testing.assert_close(g, c, atol=1e-4, rtol=1e-4,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    for (g, gt), (c, ct) in zip(gs, cs):
+        assert gt == ct and _err(g, c) < 1e-4
+    fwd, bwd, dec, ssd_fwd, ssd_bwd = (a - b for a, b in zip(_launch_counts(), n0))
+    groups = cfg.n_layers // cfg.attn_every
+    assert (fwd, bwd, dec, ssd_fwd, ssd_bwd) == (groups, 0, 8 * groups, cfg.n_layers, 0)

@@ -242,12 +242,13 @@ def test_from_jax_params_widens_bf16_exactly():
                                   "zamba2_1p2b", "internvl2_1b", "seamless_m4t_medium"])
 def test_unported_families_raise(arch):
     cfg = reduced(arch)
-    if cfg.family == "hybrid":   # trains (init, forward, loss) but does not serve
+    if cfg.family == "hybrid":
+        # trains and serves through prefill / decode_step; the engine refuses
+        # it, with the reference's reason (its engine refuses it too)
+        from repro_torch.serving import ServeEngine
         params = init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            prefill(params, torch.zeros((1, 8), dtype=torch.long), cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            init_cache(cfg, 1, 8, "cpu")
+        with pytest.raises(NotImplementedError, match="attention-family"):
+            ServeEngine(cfg, params, device="cpu")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         init_params(cfg, device="cpu")

@@ -413,12 +413,14 @@ def test_mamba2_fwd_matches_jax(zamba):
 
 
 def test_mamba2_recurrent_branches_raise(zamba):
-    _, cfg, _, tlp = zamba
-    x = torch.zeros(1, 1, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        ssm.mamba2_fwd(tlp, x, cfg, return_state=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        ssm.mamba2_fwd(tlp, x, cfg, state=object())
+    """A prompt longer than one chunk and not a multiple of it (40 tokens
+    at chunk 32) raises in the prefill branch, as the reference asserts."""
+    jcfg, cfg, jlp, tlp = zamba
+    x = np.zeros((1, 40, cfg.d_model), np.float32)
+    with pytest.raises(AssertionError, match="not divisible"):
+        _jit(lambda p, a: jssm.mamba2_fwd(p, a, jcfg, return_state=True), jlp, jnp.asarray(x))
+    with pytest.raises(AssertionError, match="not divisible"):
+        ssm.mamba2_fwd(tlp, torch.from_numpy(x), cfg, return_state=True)
 
 
 # ------------------------------------------------------------- the two repairs

@@ -187,11 +187,20 @@ def test_hybrid_split_and_join_round_trip(rigs):
 
 
 def test_hybrid_serving_still_raises(rigs):
-    _, cfg, _, tp = _rig(rigs, "zamba2_1p2b")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, hybrid serving"):
-        prefill(tp, torch.zeros(1, 8, dtype=torch.long), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, hybrid serving"):
-        init_cache(cfg, 1, 8, "cpu")
+    """Hybrid models serve through prefill / decode_step; the engine refuses
+    them with the reference's reason, as the reference's engine does."""
+    from repro.serving import ServeEngine as JServeEngine
+    from repro_torch.serving import ServeEngine
+    jcfg, cfg, jp, tp = _rig(rigs, "zamba2_1p2b")
+    msg = "ServeEngine drives attention-family LMs"
+    with pytest.raises(NotImplementedError, match=msg):
+        JServeEngine(jcfg, jp)
+    with pytest.raises(NotImplementedError, match=msg):
+        ServeEngine(cfg, tp, device="cpu")
+    logits, cache = prefill(tp, torch.zeros(1, 8, dtype=torch.long), cfg)
+    assert logits.shape == (1, cfg.vocab)
+    assert [tuple(t.shape) for t in cache["mamba"]] == \
+        [tuple(t.shape) for t in init_cache(cfg, 1, 8, "cpu")["mamba"]]
 
 
 # ------------------------------------------------------------- train step
