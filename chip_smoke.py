@@ -113,9 +113,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                 determinism check) on the card; fails unless the bursts had
                 the shapes phase 3 checked, the first nll is near ln(vocab)
                 and the launches equal what the layers and steps say.
-  8. a JSON line {"kernels": [...]} with each kernel's launches in phases 5,
-     7, 9, 10 and 11 and its numbers at its main path's shapes.
-  12. the last line: {"ok": true, "device": {...}}.
+  12. decision sweep -- `Experiment(device="torch")` (the port's
+                `core.decision_torch`: plain torch ops, no hand-written
+                kernel) over all 13 registered mechanisms: the reference
+                benchmark's grid (W1/W2/W4/W5 x 12 seeds, 40 jobs a cell,
+                624 cells) replayed in f64 and f32, and a Theta-scale grid
+                (600 jobs on 4392 nodes, W5, load 1.15, seeds 0-3, 4096
+                calls captured a kernel) in f64; serial (processes=0).
+                Prints each report's summary and, per replay, the CUDA-event
+                time of one call, the CUDA operations it launches and their
+                device time (torch.profiler), the apportion rounds, the
+                padded bytes and their byte bound, and the host's numpy
+                replay time of the same calls.  Fails unless f64 equals the
+                numpy engine exactly, f32 meets the reference's invariants,
+                the Theta grid drops nothing, each replay takes at most 40 us
+                of device time a decision, and the bench grid's metrics
+                equal the same grid run without the replay.
+  8. a JSON line {"decision_sweep": [...]} (phase 12's rows), then a JSON
+     line {"kernels": [...]} with each kernel's launches in phases 5, 7, 9,
+     10 and 11 and its numbers at its main path's shapes.
+  last, the line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package `repro`.
 """
@@ -424,9 +441,9 @@ def kernel_cases(torch, F, fa, fd, clock):
 
 def _kernel_name(key: str) -> str:
     """'void repro_torch::(anonymous namespace)::split_kernel<...>(...)'
-    -> 'split_kernel'."""
+    -> 'split_kernel' (template arguments dropped before the scope)."""
     key = key.replace("(anonymous namespace)::", "")
-    return key.split("(")[0].split("::")[-1].split("<")[0]
+    return key.split("(")[0].split("<")[0].split("::")[-1]
 
 
 def kernel_breakdown(torch, fd, ssd) -> dict:
@@ -1219,6 +1236,147 @@ def launchers_on_card(torch, fa, fd, ssd):
     return launches
 
 
+# -------------------------------------------------------- 12. decision sweep
+SWEEP_MIXES = ("W1", "W2", "W4", "W5")
+#: the reference benchmark's bound on device time per replayed decision
+#: (benchmarks/bench_device_sweep.py): it catches a replay that falls apart
+#: into per-row or per-cell programs, not noise
+SWEEP_BOUND_US = 40.0
+SWEEP_THETA_MIN_CALLS = 126_000
+
+
+def _sweep_cells(result):
+    return [(f"{r.spec.mechanism}/{r.spec.workload.notice_mix}/s{r.spec.seed}",
+             r.decision_trace) for r in result.runs]
+
+
+def host_replay_s(D, cells, repeats: int = 3) -> float:
+    """Best of `repeats` re-executions of every captured call through the
+    port's numpy kernels: the host's cost of the same decisions, without
+    the simulator around them."""
+    import numpy as np
+    fns = {k: getattr(D, k) for k in D.DecisionTrace.KERNELS}
+    best = math.inf
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _label, trace in cells:
+            for kernel, calls in trace.calls.items():
+                fn = fns[kernel]
+                if kernel == "backfill_shadow_filter":
+                    # the trace holds the gathered needs/ests rows: replay
+                    # them with identity candidates (the same work)
+                    for (needs, ests, _cand, budget, now, ts), _out in calls:
+                        fn(needs, ests, np.arange(len(needs)), budget, now, ts)
+                else:
+                    for inputs, _out in calls:
+                        fn(*inputs)
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def sweep_measure(torch, T, D, cells, dtype: str) -> dict:
+    """One grid's replay on the card, measured beside its report: the
+    CUDA-event time of one steady `_sweep_program` call (start to end
+    event: the device's work and any idle while the host enqueues or reads
+    an apportion round's condition), the CUDA operations one call launches
+    and their summed device time (torch.profiler; the six costliest by
+    name with their counts), the apportion rounds,
+    the padded batches' bytes (inputs read once, outputs written once) and
+    their byte bound, and the host's numpy replay of the same calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    batches_np, _index, _pads = T._build_batches(cells, dtype)
+    batches = T.to_device(batches_np, "cuda")
+    stats = {}
+    outs = T._sweep_program(batches, stats)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    T._sweep_program(batches)
+    end.record()
+    end.synchronize()
+    event_ms = start.elapsed_time(end)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        T._sweep_program(batches)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in ops:
+        n, us = by_name.get(_kernel_name(e.name), (0, 0.0))
+        by_name[_kernel_name(e.name)] = (n + 1, us + e.device_time_total)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    in_bytes = sum(a.nbytes for b in batches_np.values() for a in b.values())
+    out_bytes = sum(t.numel() * t.element_size() for o in outs.values()
+                    for t in (o if isinstance(o, tuple) else (o,)))
+    return {"event_ms": event_ms, "launches": len(ops),
+            "busy_ms": sum(e.device_time_total for e in ops) / 1e3,
+            "top_ops_ms": {k: [n, us / 1e3] for k, (n, us) in top},
+            **stats, "bytes_in": in_bytes, "bytes_out": out_bytes,
+            "bound_ms": 1e3 * (in_bytes + out_bytes) / HBM_BYTES_PER_S,
+            "host_replay_ms": 1e3 * host_replay_s(D, cells)}
+
+
+def decision_sweep(torch) -> list:
+    """Phase 12: `Experiment(device="torch")` over every registered
+    mechanism on the card, the bench's grid (13 mechanisms x W1/W2/W4/W5 x
+    12 seeds, 40 jobs a cell, 32 calls captured a kernel) in float64 and
+    float32, then a Theta-scale grid (600 jobs on 4392 nodes, W5, load
+    1.15, seeds 0-3, 4096 captured) in float64.  Serial (processes=0):
+    the earlier phases started CUDA and torch's thread pools, and forking
+    such a process can deadlock.  Fails unless every float64 replay equals
+    the numpy engine exactly, float32 meets the reference's invariants,
+    the Theta grid drops nothing, each stays within SWEEP_BOUND_US a
+    decision, and the bench grid's metrics equal the same grid run without
+    the replay.  Returns one row per replay."""
+    from repro_torch.core import Experiment, WorkloadConfig, registered_mechanisms
+    from repro_torch.core import decision as D
+    from repro_torch.core import decision_torch as T
+    mechs = registered_mechanisms()
+    bench = dict(mechanisms=mechs, seeds=range(12), processes=0,
+                 workloads=[WorkloadConfig(n_jobs=40, notice_mix=m) for m in SWEEP_MIXES])
+    t0 = time.perf_counter()
+    res_a = Experiment(device="torch", device_capture=32, **bench).run()
+    sweep_a_s = time.perf_counter() - t0
+    plain = Experiment(**bench).run()
+    if json.dumps([r.metrics.as_dict() for r in res_a]) != \
+            json.dumps([r.metrics.as_dict() for r in plain]):
+        raise AssertionError("decision sweep: the replay changed the bench grid's metrics")
+    cells_a = _sweep_cells(res_a)
+    rep_a32 = T.run_device_sweep(cells_a, dtype="float32")
+    t0 = time.perf_counter()
+    res_b = Experiment(mechanisms=mechs, seeds=range(4), processes=0, device="torch",
+                       device_capture=4096,
+                       workloads=[WorkloadConfig(n_jobs=600, notice_mix="W5",
+                                                 target_load=1.15)]).run()
+    sweep_b_s = time.perf_counter() - t0
+    runs = (("bench", res_a.device_report, cells_a, sweep_a_s),
+            ("bench", rep_a32, cells_a, None),
+            ("theta", res_b.device_report, _sweep_cells(res_b), sweep_b_s))
+    rows, bad = [], []
+    for grid, rep, cells, sweep_s in runs:
+        print(json.dumps({"grid": grid, **rep.summary()}), flush=True)
+        row = {"grid": grid, "dtype": rep.dtype, "cells": rep.n_cells,
+               "decisions": rep.n_calls, "pads": rep.pad_per_kernel,
+               "n_dropped": rep.n_dropped, "parity_ok": rep.parity_ok,
+               "device_ms": 1e3 * rep.device_s, "compile_s": rep.compile_s,
+               "us_per_decision": rep.device_us_per_call, "sweep_s": sweep_s,
+               **sweep_measure(torch, T, D, cells, rep.dtype)}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        if not rep.parity_ok or rep.n_mismatches:
+            bad.append(f"{grid} {rep.dtype}: {rep.n_mismatches} mismatches, "
+                       f"first {rep.mismatches[:3]}")
+        if rep.device_us_per_call > SWEEP_BOUND_US:
+            bad.append(f"{grid} {rep.dtype}: {rep.device_us_per_call:.3f} us a decision "
+                       f"> {SWEEP_BOUND_US}")
+    theta = res_b.device_report
+    if theta.n_dropped or theta.n_calls < SWEEP_THETA_MIN_CALLS:
+        bad.append(f"theta: {theta.n_calls} decisions, {theta.n_dropped} dropped")
+    if bad:
+        raise AssertionError("decision sweep: " + "; ".join(bad))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1289,6 +1447,10 @@ def main(argv=None) -> int:
     phase("11. the launchers on the card (quickstart 20m, ondemand_serving; f32)")
     launcher_launches = launchers_on_card(torch, fa, fd, ssd)
 
+    phase("12. decision sweep (Experiment(device='torch'): the bench grid in f64 and "
+          "f32, a Theta-scale grid in f64)")
+    sweep_rows = decision_sweep(torch)
+
     phase("8. kernels")
     main_shape = {
         "flash_attention": ("bfloat16", dict(B=8, S=512, H=32, K=8, D=128)),
@@ -1325,6 +1487,7 @@ def main(argv=None) -> int:
                                                "bound_ms", "bound_by", "library_ms",
                                                "library")}})
     print(smi)
+    print(json.dumps({"decision_sweep": sweep_rows}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

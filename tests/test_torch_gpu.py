@@ -547,3 +547,31 @@ def test_hybrid_serving_reduced_on_the_card(cuda):
     fwd, bwd, dec, ssd_fwd, ssd_bwd = (a - b for a, b in zip(_launch_counts(), n0))
     groups = cfg.n_layers // cfg.attn_every
     assert (fwd, bwd, dec, ssd_fwd, ssd_bwd) == (groups, 0, 8 * groups, cfg.n_layers, 0)
+
+
+def test_decision_sweep_on_the_card_equals_the_cpu(cuda):
+    """The batched decision sweep (plain torch ops, no hand-written kernel)
+    on a small captured grid of all 13 mechanisms: every output on the card
+    equals the CPU's exactly in float64, the replay is parity_ok against
+    the numpy engine, and float32 on the card meets the reference's
+    invariants (decision_torch's contract)."""
+    from repro_torch.core import Experiment, WorkloadConfig, registered_mechanisms
+    from repro_torch.core import decision_torch as T
+
+    res = Experiment(mechanisms=registered_mechanisms(),
+                     workloads=[WorkloadConfig(n_jobs=40, notice_mix=m) for m in ("W1", "W4")],
+                     seeds=(0, 1), processes=0, device="torch", device_capture=32).run()
+    rep = res.device_report
+    assert rep.parity_ok and rep.n_mismatches == 0 and rep.n_calls > 0
+    cells = [(str(i), r.decision_trace) for i, r in enumerate(res.runs)]
+    batches, _index, _pads = T._build_batches(cells, "float64")
+    assert len(batches) == 5
+    on_card = T.to_numpy(T._sweep_program(T.to_device(batches, "cuda")))
+    on_cpu = T.to_numpy(T._sweep_program(T.to_device(batches, "cpu")))
+    for kernel, outs in on_cpu.items():
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        card = on_card[kernel] if isinstance(on_card[kernel], tuple) else (on_card[kernel],)
+        for g, c in zip(card, outs):
+            assert g.dtype == c.dtype and np.array_equal(g, c), kernel
+    rep32 = T.run_device_sweep(cells, dtype="float32", device="cuda")
+    assert rep32.parity_ok, rep32.mismatches[:5]
