@@ -37,7 +37,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                 and backward and the attention forward and backward of 4 x
                 2048 tokens at zamba2-1.2b's widths; phase 10's shared-block
                 prefill of 8 x 512 tokens and its decode over the 576-row
-                cache at the first and the last valid length); and, in f32,
+                cache at the first and the last valid length); in bf16 at
+                olmoe-1b-7b's heads (H = K = 16, D = 128): phase 14's
+                prefill of 8 prompts padded to the longest, its decode over
+                the 1024-row cache at the first and the last valid length,
+                and phase 15's attention forward and backward of 2 x 2048
+                tokens; and, in f32,
                 at the shapes phase 11 gives them (the serve demo's two
                 prefills and decodes over their prompt-long caches,
                 quickstart's attention forward and backward).  Tolerance: 1e-4 in f32 and 2e-2
@@ -129,9 +134,37 @@ Phases, in order; any failure raises and the script exits non-zero:
                 the Theta grid drops nothing, each replay takes at most 40 us
                 of device time a decision, and the bench grid's metrics
                 equal the same grid run without the replay.
+  13. MoE parity -- reduced olmoe-1b-7b in f32 (TF32 off) and its two
+                variants (capacity factor 0.5, so prefill drops assignments;
+                a shared expert and a dense first block), the same seeded
+                params on the card (kernels) and on the CPU (plain
+                versions): prefill logits within 1e-4, `ServeEngine`'s greedy
+                tokens equal, one train step's loss, grad norm and params
+                within 1e-4 (AdamW eps 1e-3).
+  14. MoE serve -- `repro_torch.launch.serve.main` at olmoe-1b-7b's full
+                width and depth (16 layers, 64 experts top-8, bf16), random
+                weights from seed 0, 8 requests of 384-512 prompt tokens and
+                64 new each, max_seq 1024.  Launches (counts zeroed just
+                before, read just after) must be flash_attention 16 and
+                flash_decode 16 x 63, the batch the shape phase 3 checked,
+                and a second serve of the same requests on an engine over
+                the same seeded params must give the same tokens.  Prints
+                TTFT, tok/s, the median decode step, peak memory, the decode
+                step's byte bound (every weight is read: the capacity buffer
+                runs every expert) and `torch.profiler`'s top CUDA kernels
+                and the device's busy share in one prefill and one decode
+                step.
+  15. MoE train -- `repro_torch.launch.train.main` at olmoe-1b-7b's full
+                width cut to 8 of its 16 layers (memory: 16 layers' bf16
+                params and grads, f32 grad sums and f32 AdamW moments need
+                about 111 GB; 8 layers about 57 GB and the activations),
+                bf16, remat "full", 4 microbatches, 3 steps of 8 x 2048
+                tokens.  Fails unless the losses are finite and the
+                attention launches equal `train_launches` (dense layout).
+                Prints the step times, tokens/s and peak memory.
   8. a JSON line {"decision_sweep": [...]} (phase 12's rows), then a JSON
      line {"kernels": [...]} with each kernel's launches in phases 5, 7, 9,
-     10 and 11 and its numbers at its main path's shapes.
+     10, 11, 14 and 15 and its numbers at its main path's shapes.
   last, the line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package `repro`.
@@ -232,6 +265,30 @@ HYBRID_CACHE = HYBRID_PROMPT + HYBRID_NEW
 # their largest axis), and quickstart's 20m model at its own batch and seq
 DEMO_SERVE_SHAPES = ((8, 29), (4, 24))
 QUICK_STEPS, QUICK_BATCH, QUICK_SEQ = 20, 4, 256
+# Phase 14's sizes: full-width olmoe-1b-7b serving MOE_REQUESTS requests of
+# MOE_PROMPT prompt tokens (lengths drawn by `launch.serve.draw_requests`),
+# MOE_NEW new tokens, a MOE_MAX_SEQ-row cache; olmoe's heads (H = K = 16)
+MOE_REQUESTS, MOE_PROMPT, MOE_NEW, MOE_MAX_SEQ = 8, (384, 512), 64, 1024
+MOE_HEADS = dict(H=16, K=16, D=128)
+# Phase 15's: olmoe-1b-7b cut to MOE_TRAIN_LAYERS layers, MOE_TRAIN_STEPS
+# steps of MOE_TRAIN_BATCH x MOE_TRAIN_SEQ tokens (2 x 2048 a microbatch)
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 8, 3, 8, 2048
+
+
+def moe_serve_batch():
+    """(batch, padded prompt length) of phase 14's requests: the draws of
+    `launch.serve.draw_requests` (numpy, seed 0), made here so that
+    `--kernels-only` also runs in a checkout older than that function;
+    phase 14 checks that its batch has this shape."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    vocab = get_config("olmoe_1b_7b").vocab
+    rng = np.random.default_rng(0)
+    lens = []
+    for _ in range(MOE_REQUESTS):
+        lens.append(int(rng.integers(MOE_PROMPT[0], MOE_PROMPT[1] + 1)))
+        rng.integers(0, vocab, lens[-1], dtype=np.int32)
+    return MOE_REQUESTS, max(lens)
 
 
 class Clock:
@@ -362,6 +419,7 @@ def attention_cost(B, Sq, Skv, H, K, D, Dv, esize, causal=True, vlen=None):
 
 def kernel_cases(torch, F, fa, fd, clock):
     """Run every kernel-vs-plain case; return the rows, keyed by case name."""
+    moe_b, moe_s = moe_serve_batch()
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     rows = {}
@@ -399,6 +457,13 @@ def kernel_cases(torch, F, fa, fd, clock):
         cases += [("flash_attention", "float32", dict(B=B, S=S, H=4, K=2, D=64)),
                   ("flash_decode", "float32", dict(B=B, S=S, H=4, K=2, D=64, vlen=S))]
     cases += [("flash_attention", "float32", dict(B=QUICK_BATCH, S=QUICK_SEQ, H=6, K=6, D=64))]
+    # phase 14's (bf16, olmoe's heads: G = 1 at D = 128): the prefill and
+    # the decode over the grown cache at the first and the last valid
+    # length; phase 15's training forward (2 x 2048 a microbatch)
+    cases += [("flash_attention", "bfloat16", dict(B=moe_b, S=moe_s, **MOE_HEADS))]
+    cases += [("flash_decode", "bfloat16", dict(B=moe_b, S=MOE_MAX_SEQ, **MOE_HEADS, vlen=vl))
+              for vl in (moe_s + 1, moe_s + MOE_NEW - 1)]
+    cases += [("flash_attention", "bfloat16", dict(B=2, S=MOE_TRAIN_SEQ, **MOE_HEADS))]
 
     for kname, dtn, c in cases:
         dt = getattr(torch, dtn)
@@ -622,8 +687,9 @@ def training_kernel_cases(torch, F, fa, ssd, clock):
     # phase 9's own shapes (bf16): its jobs' batch at zamba2-1.2b's widths
     live_ssd = [dict(b=LIVE_BATCH, s=LIVE_SEQ, h=64, p=64, n=64, chunk=256)]
     live_fa = [dict(B=LIVE_BATCH, S=LIVE_SEQ, H=32, K=32, D=64)]
-    # phase 11's quickstart backward (f32)
+    # phase 11's quickstart backward (f32); phase 15's backward (bf16, D = 128)
     quick_fa = [dict(B=QUICK_BATCH, S=QUICK_SEQ, H=6, K=6, D=64)]
+    moe_fa = [dict(B=2, S=MOE_TRAIN_SEQ, **MOE_HEADS)]
     for dtn in ("bfloat16", "float32"):
         dt = getattr(torch, dtn)
         bf16 = dtn == "bfloat16"
@@ -727,7 +793,7 @@ def training_kernel_cases(torch, F, fa, ssd, clock):
             raise AssertionError(f"ssd_scan_bwd {dtn} at the model's decay: {checked} > "
                                  f"{TOL[dtn]}")
         del got, refs
-        for c in fa_shapes + (live_fa if bf16 else quick_fa):
+        for c in fa_shapes + (live_fa + moe_fa if bf16 else quick_fa):
             B, S, H, K, D = (c[k] for k in ("B", "S", "H", "K", "D"))
             scale = 1.0 / math.sqrt(D)
             q, k, v = rnd((B, S, H, D), dt), rnd((B, S, K, D), dt), rnd((B, S, K, D), dt)
@@ -759,17 +825,29 @@ def training_kernel_cases(torch, F, fa, ssd, clock):
 
 
 def train_launches(cfg, microbatches: int) -> dict:
-    """Each kernel's launches in one hybrid train step, from the layer
-    structure and the remat nesting.  Per microbatch: G = n_layers //
-    attn_every groups of attn_every Mamba-2 layers, each group followed by
-    the shared attention block, then n_layers % attn_every tail layers.
-    Under remat="full" each group is checkpointed and so is each Mamba-2
-    layer in it (as in the reference), so a group's layer runs its forward
-    three times (forward, the group's recompute, its own recompute), a tail
-    layer twice and the shared block twice; each backward runs once."""
+    """Each kernel's launches in one train step, from the layer structure
+    and the remat nesting.
+
+    Hybrid, per microbatch: G = n_layers // attn_every groups of attn_every
+    Mamba-2 layers, each group followed by the shared attention block, then
+    n_layers % attn_every tail layers.  Under remat="full" each group is
+    checkpointed and so is each Mamba-2 layer in it (as in the reference),
+    so a group's layer runs its forward three times (forward, the group's
+    recompute, its own recompute), a tail layer twice and the shared block
+    twice; each backward runs once.
+
+    Dense layout (dense and MoE blocks, `pre_layers` included), per
+    microbatch: each of the n_layers blocks runs attention forward once,
+    twice under remat="full" (each block is checkpointed), and its backward
+    once; no SSD kernel."""
+    full = cfg.remat == "full"
+    if cfg.family != "hybrid":
+        per_mb = {"ssd_scan": 0, "ssd_scan_bwd": 0,
+                  "flash_attention": cfg.n_layers * (2 if full else 1),
+                  "flash_attention_bwd": cfg.n_layers}
+        return {name: microbatches * n for name, n in per_mb.items()}
     k = cfg.attn_every
     groups, tail = cfg.n_layers // k, cfg.n_layers % k
-    full = cfg.remat == "full"
     per_mb = {"ssd_scan": groups * k * (3 if full else 1) + tail * (2 if full else 1),
               "ssd_scan_bwd": cfg.n_layers,
               "flash_attention": groups * (2 if full else 1),
@@ -1377,6 +1455,218 @@ def decision_sweep(torch) -> list:
     return rows
 
 
+# ------------------------------------------------------------ 13. MoE parity
+MOE_VARIANTS = ("base", "dropping", "shared_dense")
+
+
+def moe_variant(cfg, name: str):
+    """Reduced olmoe as it is, with capacity factor 0.5 ("dropping"), or
+    with a shared expert and a dense first block ("shared_dense")."""
+    import dataclasses
+    if name == "dropping":
+        return cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    if name == "shared_dense":
+        return cfg.with_(moe=dataclasses.replace(cfg.moe, n_shared=1, first_dense=1,
+                                                 d_first_dense=256))
+    return cfg
+
+
+def moe_parity(torch):
+    """Reduced olmoe in f32 and its variants, the same seeded params on the
+    card and on the CPU: prefill logits within 1e-4, `ServeEngine` tokens
+    equal, one train step's loss, grad norm and params within 1e-4."""
+    import numpy as np
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.training import (AdamW, make_train_state, make_train_step,
+                                      synthetic_batch)
+    from repro_torch.training.optimizer import tree_leaves
+
+    rng = np.random.default_rng(0)
+    opt = AdamW(lr=1e-3, eps=1e-3, warmup=1, total_steps=4)
+    bad = []
+    for name in MOE_VARIANTS:
+        cfg = moe_variant(reduced("olmoe_1b_7b"), name)
+        prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32) for n in (40, 57, 64, 33)]
+        toks = torch.from_numpy(np.stack([np.pad(p, (64 - len(p), 0)) for p in prompts]))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            # a fresh copy each: the train step updates its params in place
+            p = _to(init_params(cfg, seed=0, device="cpu"), dev)
+            logits, _ = prefill(p, toks.to(dev), cfg)
+            reqs = [Request(rid=i, prompt=pr, max_new_tokens=16) for i, pr in enumerate(prompts)]
+            ServeEngine(cfg, p, max_seq=128, device=dev).serve_batch(reqs)
+            state, m = make_train_step(cfg, opt)(make_train_state(p, opt),
+                                                 synthetic_batch(cfg, 2, 64, device=dev))
+            out[dev] = (logits.cpu(), [r.tokens_out for r in reqs],
+                        {k: float(v) for k, v in m.items()}, state.params)
+        (lc, tc, mc, pc), (lg, tg, mg, pg) = out["cpu"], out["cuda"]
+        step_err = max(abs(mg[k] - mc[k]) / max(1.0, abs(mc[k])) for k in ("loss", "grad_norm"))
+        for a, b in zip(tree_leaves(pc), tree_leaves(pg)):
+            step_err = max(step_err, float(((b.cpu() - a).abs() / (1 + a.abs())).max()))
+        row = {"variant": name, "prefill_logits_max_abs_err": float((lg - lc).abs().max()),
+               "tokens_equal": tg == tc, "train_step_max_err": step_err,
+               "loss": mg["loss"], "aux": mg["aux"], "first_tokens": tg[0][:8]}
+        print(json.dumps({"moe_parity": row}), flush=True)
+        if not (row["prefill_logits_max_abs_err"] <= 1e-4 and tg == tc and step_err <= 1e-4):
+            bad.append(row)
+    if bad:
+        raise AssertionError(f"reduced olmoe differs cuda vs cpu: {bad}")
+
+
+# ------------------------------------------------------------- 14. MoE serve
+def profile_call(torch, fn):
+    """Run fn once under torch.profiler (CUDA activity) from a synchronised
+    device to the device done with it.  Returns (fn's result, {"wall_ms":
+    the window on the host clock, "busy_ms": the device time of its CUDA
+    operations, "busy_share", "launches", "top_ms": the eight costliest
+    operations by name, [count, ms]})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in ops:
+        n, us = by_name.get(_kernel_name(e.name), (0, 0.0))
+        by_name[_kernel_name(e.name)] = (n + 1, us + e.device_time_total)
+    busy_ms = sum(e.device_time_total for e in ops) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return out, {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+                 "launches": len(ops), "top_ms": {k: [n, us / 1e3] for k, (n, us) in top}}
+
+
+def full_width_moe_serve(torch, fa, fd, ssd):
+    """olmoe-1b-7b at full width and depth, bf16, random weights from seed
+    0, through `launch.serve.main`: MOE_REQUESTS requests of MOE_PROMPT
+    prompt tokens, MOE_NEW new, max_seq MOE_MAX_SEQ.  Counts are zeroed
+    just before and read just after; the same requests are then served on
+    an engine over the same seeded params (the tokens must be equal), and
+    one prefill and one decode step of them run under torch.profiler.
+    Returns the launches."""
+    import gc
+
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import draw_requests
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serving import ServeEngine
+    from repro_torch.training.optimizer import tree_leaves
+
+    gc.collect()                 # what earlier phases left in reference cycles
+    torch.cuda.empty_cache()
+    print(f"allocated before the phase: {torch.cuda.memory_allocated()} B")
+    argv = ["--arch", "olmoe-1b-7b", "--requests", str(MOE_REQUESTS),
+            "--prompt-len", str(MOE_PROMPT[1]), "--min-prompt-len", str(MOE_PROMPT[0]),
+            "--max-new", str(MOE_NEW), "--max-seq", str(MOE_MAX_SEQ)]
+    counters = _zeroed_counters(fa, fd, ssd)
+    stats = serve_main(argv)
+    launches = counters()
+    outputs = stats.pop("outputs")
+    print(json.dumps({"moe_serve": stats, "launches": launches}), flush=True)
+    cfg = get_config("olmoe_1b_7b")
+    expected = {"flash_attention": cfg.n_layers, "flash_decode": cfg.n_layers * (MOE_NEW - 1),
+                "ssd_scan": 0, "ssd_scan_bwd": 0, "flash_attention_bwd": 0,
+                "ssd_scan_final_state": 0}
+    print(f"launches {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} != {expected}")
+    B, S = moe_serve_batch()
+    if (len(stats["prompt_lens"]), max(stats["prompt_lens"])) != (B, S):
+        raise AssertionError(f"batch of prompts {stats['prompt_lens']}: not the {B} x {S} "
+                             "phase 3 checked")
+    if any(len(o) != MOE_NEW or not all(0 <= t < cfg.vocab for t in o) for o in outputs):
+        raise AssertionError(f"a request did not return {MOE_NEW} tokens in the vocab")
+    if not (math.isfinite(stats["tok_per_s"]) and stats["ttft_s_max"] > 0):
+        raise AssertionError(f"bad serve stats {stats}")
+    # the same requests again, on an engine over the same seeded params
+    params = init_params(cfg, seed=0, device="cuda")
+    reqs = draw_requests(cfg.vocab, MOE_REQUESTS, *MOE_PROMPT, MOE_NEW)
+    ServeEngine(cfg, params, max_seq=MOE_MAX_SEQ, device="cuda").serve_batch(reqs)
+    same = [r.tokens_out for r in reqs] == outputs
+    print(f"moe serve deterministic: {same}")
+    if not same:
+        raise AssertionError("a second serve of the same requests gave other tokens")
+    # a decode step reads every weight but the token embedding's table (B
+    # of its rows), since the capacity buffer runs every expert, and the
+    # k/v cache up to its valid length (S + 32 rows on average over the
+    # steps), and writes one k/v row
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    tok = params["embed"]["tok"]
+    weight_bytes -= (tok.shape[0] - B) * tok.shape[1] * tok.element_size()
+    row_bytes = 2 * cfg.n_layers * B * cfg.n_kv * cfg.d_head * 2
+    step_bytes = weight_bytes + row_bytes * (S + MOE_NEW // 2 + 1)
+    print(json.dumps({"moe_decode_step": {
+        "median_ms": 1e3 * stats["decode_step_s_median"], "bytes": step_bytes,
+        "weight_bytes": weight_bytes, "bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S}}))
+    # where a prefill's and a decode step's time goes
+    toks = torch.zeros((B, S), dtype=torch.long)
+    for i, r in enumerate(reqs):
+        toks[i, S - len(r.prompt):] = torch.from_numpy(r.prompt)
+    toks = toks.cuda()
+    with torch.no_grad():
+        prefill(params, toks, cfg)                         # warm
+        (logits, cache), pre = profile_call(torch, lambda: prefill(params, toks, cfg))
+        cache = {n: tuple(F.pad(c, (0, 0, 0, 0, 0, MOE_MAX_SEQ - S)) for c in kv)
+                 for n, kv in cache.items()}
+        nxt = logits.argmax(-1)[:, None]
+        decode_step(params, cache, nxt, S, cfg)            # warm
+        _, dec = profile_call(torch, lambda: decode_step(params, cache, nxt, S + 1, cfg))
+    print(json.dumps({"moe_profile": {"prefill": pre, "decode_step": dec}}), flush=True)
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------------- 15. MoE train
+def full_width_moe_train(torch, fa, fd, ssd):
+    """olmoe-1b-7b at full width cut to MOE_TRAIN_LAYERS layers, bf16,
+    remat "full", its 4 microbatches, MOE_TRAIN_STEPS steps of
+    MOE_TRAIN_BATCH x MOE_TRAIN_SEQ tokens through `launch.train.main`.
+    Counts zeroed just before, read just after.  Returns the launches."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import main as train_main
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--arch", "olmoe-1b-7b", "--layers", str(MOE_TRAIN_LAYERS),
+            "--steps", str(MOE_TRAIN_STEPS), "--batch", str(MOE_TRAIN_BATCH),
+            "--seq", str(MOE_TRAIN_SEQ)]
+    counters = _zeroed_counters(fa, fd, ssd)
+    stats = train_main(argv)
+    launches = counters()
+    print(json.dumps({"moe_train": stats, "launches": launches}), flush=True)
+    cfg = get_config("olmoe_1b_7b").with_(n_layers=MOE_TRAIN_LAYERS)
+    expected = {k: MOE_TRAIN_STEPS * n
+                for k, n in train_launches(cfg, cfg.train_microbatches).items()}
+    expected.update(flash_decode=0, ssd_scan_final_state=0)
+    print(f"launches {launches}, expected {expected} ({MOE_TRAIN_STEPS} steps)")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} != {expected}")
+    losses = stats["losses"]
+    if not (len(losses) == MOE_TRAIN_STEPS and all(math.isfinite(x) for x in losses)
+            and abs(losses[0] - math.log(cfg.vocab)) < 1.5):
+        raise AssertionError(f"losses {losses}: not {MOE_TRAIN_STEPS} finite, or the first "
+                             f"far from ln {cfg.vocab} = {math.log(cfg.vocab):.2f}")
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    print(json.dumps({"step_seconds": stats["step_seconds"],
+                      "tokens_per_s": stats["tokens_per_s"],
+                      "steady_tokens_per_s": tokens / min(stats["step_seconds"][1:]),
+                      "max_memory_allocated": stats["max_memory_allocated"]}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1451,6 +1741,17 @@ def main(argv=None) -> int:
           "f32, a Theta-scale grid in f64)")
     sweep_rows = decision_sweep(torch)
 
+    phase("13. MoE parity (reduced olmoe-1b-7b and two variants, f32, cuda vs cpu)")
+    moe_parity(torch)
+
+    phase(f"14. full-width olmoe-1b-7b serve (bf16, 16 layers, {MOE_REQUESTS} x "
+          f"{MOE_PROMPT[0]}-{MOE_PROMPT[1]} prompt tokens, {MOE_NEW} new)")
+    moe_serve_launches = full_width_moe_serve(torch, fa, fd, ssd)
+
+    phase(f"15. olmoe-1b-7b train (full width, {MOE_TRAIN_LAYERS} layers, bf16, "
+          f"{MOE_TRAIN_STEPS} steps of {MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ})")
+    moe_train_launches = full_width_moe_train(torch, fa, fd, ssd)
+
     phase("8. kernels")
     main_shape = {
         "flash_attention": ("bfloat16", dict(B=8, S=512, H=32, K=8, D=128)),
@@ -1479,7 +1780,9 @@ def main(argv=None) -> int:
                    "train": train_launches_seen.get(name, 0),
                    "live": live_launches.get(name, 0),
                    "hybrid_serve": hybrid_launches[name],
-                   "launchers": launcher_launches[name]}
+                   "launchers": launcher_launches[name],
+                   "moe_serve": moe_serve_launches[name],
+                   "moe_train": moe_train_launches[name]}
         kernels.append({"name": name, "route": "cuda", "source": meta[name][0],
                         "replaces": meta[name][1], "launches": sum(by_path.values()),
                         "launches_by_path": by_path,

@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --reduced --requests 8 --max-new 32 [--device cpu]
 
+Any dense or MoE arch serves (`--arch olmoe-1b-7b`); the others raise.
+
 Runs on CUDA unless `--device cpu` is given; with the default device and no
 CUDA it raises rather than fall back.  Weights and prompts are random, from seed 0.
 `--min-prompt-len` draws prompt lengths from [min, --prompt-len], so the
@@ -20,6 +22,18 @@ from repro_torch.configs import ALIASES, get_config
 from repro_torch.configs.reduced import reduce_config
 from repro_torch.models import init_params
 from repro_torch.serving import Request, ServeEngine
+
+
+def draw_requests(vocab: int, n: int, min_len: int, max_len: int, max_new: int,
+                  seed: int = 0):
+    """n requests of random prompts, each of a length drawn from [min_len,
+    max_len], from numpy's generator seeded with `seed`."""
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i,
+                    prompt=rng.integers(0, vocab, int(rng.integers(min_len, max_len + 1)),
+                                        dtype=np.int32),
+                    max_new_tokens=max_new)
+            for i in range(n)]
 
 
 def main(argv=None) -> dict:
@@ -53,14 +67,8 @@ def main(argv=None) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-    rng = np.random.default_rng(0)
-    lo = args.min_prompt_len or args.prompt_len
-    reqs = [Request(rid=i,
-                    prompt=rng.integers(0, cfg.vocab,
-                                        int(rng.integers(lo, args.prompt_len + 1)),
-                                        dtype=np.int32),
-                    max_new_tokens=args.max_new)
-            for i in range(args.requests)]
+    reqs = draw_requests(cfg.vocab, args.requests, args.min_prompt_len or args.prompt_len,
+                         args.prompt_len, args.max_new)
     t0 = time.perf_counter()
     engine.serve_batch(reqs)
     if device.type == "cuda":
@@ -73,6 +81,8 @@ def main(argv=None) -> dict:
         "requests": len(reqs), "prompt_lens": [len(r.prompt) for r in reqs],
         "tokens": n, "seconds": dt, "tok_per_s": n / dt,
         "ttft_s_max": max(ttft),
+        "decode_step_s_median": (float(np.median(engine.step_seconds))
+                                 if engine.step_seconds else None),
         "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
                                  if device.type == "cuda" else None),
     }

@@ -6,9 +6,11 @@
 The port's counterpart of `repro.launch.train`, without `--mesh` (one card).
 Runs on CUDA unless `--device cpu` is given; with the default device and no
 CUDA it raises rather than fall back.  `--reduced` swaps in the same-family
-smoke config.  Weights are random from seed 0 and the data is
-`synthetic_batch`.  Restart after a failure is re-running the same command:
-the launcher resumes from the newest checkpoint in `--ckpt-dir`.
+smoke config and `--layers N` cuts the depth (for a model whose full depth
+does not fit on one card: `--arch olmoe-1b-7b --layers 8`).  Weights are
+random from seed 0 and the data is `synthetic_batch`.  Restart after a
+failure is re-running the same command: the launcher resumes from the
+newest checkpoint in `--ckpt-dir`.
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ def main(argv=None) -> dict:
                     help="same-family smoke config (CPU-sized)")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--microbatches", type=int, default=None)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -49,6 +53,8 @@ def main(argv=None) -> dict:
         cfg = reduce_config(cfg)
     if args.microbatches:
         cfg = cfg.with_(train_microbatches=args.microbatches)
+    if args.layers:
+        cfg = cfg.with_(n_layers=args.layers)
     if args.batch % cfg.train_microbatches:
         raise ValueError(f"--batch {args.batch} does not split into "
                          f"{cfg.train_microbatches} microbatches")

@@ -29,7 +29,8 @@ def from_jax_params(np_params: Dict[str, Any], cfg: ModelConfig,
     """np_params: the JAX param pytree with numpy leaves (e.g.
     `jax.tree.map(np.asarray, params)`).  Returns the port's params on
     `device`, each leaf in the dtype `init_params` gives it (cfg.param_dtype,
-    except the Mamba-2 leaves the reference keeps in float32).  Raises on a
+    except the Mamba-2 leaves and the MoE router, which the reference keeps
+    in float32).  Raises on a
     missing or unused key or a shape that differs."""
     expected = dict(_flatten(init_params(cfg, device="meta")))
     given = dict(_flatten(np_params))

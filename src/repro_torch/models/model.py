@@ -1,17 +1,21 @@
 """Model assembly: init / forward / loss / prefill / decode.
 
-The port's counterpart of `repro.models.model` for two families:
+The port's counterpart of `repro.models.model` for three families:
 
   dense  : [GQA attention + SwiGLU] blocks with pre-RMSNorm; trained,
            prefilled and decoded.
+  moe    : the same blocks with a routed-expert FFN (`models/moe.py`, one
+           device) in place of SwiGLU, after `moe.first_dense` dense blocks
+           (`pre_layers`); each MoE block adds its load-balance aux loss.
   hybrid : a Mamba-2 stack with one *shared-weight* GQA+SwiGLU block
            applied every `attn_every` layers (Zamba-style); trained,
            prefilled and decoded.
 
 Per-layer params are stacked on axis 0 under the reference's keys, and a
-Python loop over layers takes the place of `lax.scan`.  The dense cache is
-{"layers": (k, v)}, each (L, B, S, K, Dh); the hybrid cache is the
-reference's {"mamba": MambaState of (L, ...) stacks, "attn": (k, v)}, each
+Python loop over layers takes the place of `lax.scan`.  The dense and MoE
+cache is {"layers": (k, v)}, each (L, B, S, K, Dh), plus {"pre_layers":
+(k, v)} for the first dense blocks; the hybrid cache is the reference's
+{"mamba": MambaState of (L, ...) stacks, "attn": (k, v)}, each
 (L // attn_every, B, S, K, Dh), one per application of the shared block.
 `decode_step` writes each layer's new row and state into them in place.
 
@@ -25,6 +29,7 @@ from typing import Any, Dict, NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig, torch_dtype
 from .layers import (embed, gqa_fwd, init_embedding, init_gqa, init_rmsnorm,
@@ -34,10 +39,9 @@ Params = Dict[str, Any]
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise unless cfg is a dense GQA model or a hybrid Mamba-2 one."""
-    if cfg.moe or cfg.family == "moe":
-        item = "MoE"
-    elif cfg.mla:
+    """Raise unless cfg is a dense or MoE GQA model or a hybrid Mamba-2 one
+    (MLA first: deepseek-v2 is MoE and MLA)."""
+    if cfg.mla:
         item = "MLA"
     elif cfg.family == "ssm":
         item = "recurrent families"
@@ -66,17 +70,28 @@ def _layer(stacked: Params, i: int) -> Params:
             for k, v in stacked.items()}
 
 
+def _n_layers(stack: Params) -> int:
+    """The number of blocks in a dense or MoE block stack."""
+    return stack["ln1"]["scale"].shape[0]
+
+
 # ============================================================== block
 def _block_fwd(p: Params, x, cfg: ModelConfig, *, positions, cache=None,
                cache_index=None, causal=True, return_kv=False):
+    """One block: GQA attention, then SwiGLU or, in a block with "moe"
+    params, the routed experts.  Returns (x, cache or None, aux): aux is
+    the MoE block's f32 load-balance loss, 0.0 for a dense block."""
     h, new_cache = gqa_fwd(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
                            positions=positions, cache=cache,
                            cache_index=cache_index, causal=causal,
                            return_kv=return_kv)
     x = x + h
-    h = swiglu_fwd(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps),
-                   cfg.compute_dtype)
-    return x + h, new_cache
+    hn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if "moe" in p:
+        h, aux = moe_mod.moe_fwd(p["moe"], hn, cfg)
+    else:
+        h, aux = swiglu_fwd(p["ffn"], hn, cfg.compute_dtype), 0.0
+    return x + h, new_cache, aux
 
 
 # ================================================================== init
@@ -97,19 +112,39 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
         p["layers"] = ssm_mod.init_mamba2(gen, cfg, lead=(cfg.n_layers,))
         p["shared_attn"] = _init_block(gen, cfg, device)
     else:
-        p["layers"] = _init_block(gen, cfg, device, lead=(cfg.n_layers,))
+        n_pre = _n_pre(cfg)
+        if n_pre:
+            p["pre_layers"] = _init_block(gen, cfg, device, lead=(n_pre,))
+        p["layers"] = _init_block(gen, cfg, device, lead=(cfg.n_layers - n_pre,),
+                                  moe_layer=cfg.moe is not None)
     return p
 
 
-def _init_block(gen, cfg: ModelConfig, device, lead=()) -> Params:
+def _n_pre(cfg: ModelConfig) -> int:
+    """The dense blocks an MoE model runs first (`pre_layers`)."""
+    return cfg.moe.first_dense if cfg.moe else 0
+
+
+def _init_block(gen, cfg: ModelConfig, device, lead=(), moe_layer=False) -> Params:
     dt = torch_dtype(cfg.param_dtype)
     d = cfg.d_model
-    return {
+    p = {
         "ln1": init_rmsnorm(d, dt, device, lead=lead),
         "ln2": init_rmsnorm(d, dt, device, lead=lead),
         "attn": init_gqa(gen, cfg, lead=lead),
-        "ffn": init_swiglu(gen, d, cfg.d_ff, dt, lead=lead),
     }
+    if moe_layer:
+        p["moe"] = moe_mod.init_moe(gen, cfg, lead=lead)
+    else:
+        d_ff = cfg.moe.d_first_dense if _n_pre(cfg) else cfg.d_ff
+        p["ffn"] = init_swiglu(gen, d, d_ff, dt, lead=lead)
+    return p
+
+
+def _stacks(params: Params):
+    """The dense and MoE block stacks in the order they run: `pre_layers`
+    (when the model has them), then `layers`."""
+    return [name for name in ("pre_layers", "layers") if name in params]
 
 
 def _positions(B: int, start: int, S: int, device) -> torch.Tensor:
@@ -139,22 +174,31 @@ class TrainBatch(NamedTuple):
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, padded_vocab).  Layers (dense) or
+    """tokens (B, S) -> logits (B, S, padded_vocab).  Layers (dense, MoE) or
     groups and tail layers (hybrid) are checkpointed as cfg.remat says."""
+    return _forward(params, tokens, cfg)[0]
+
+
+def _forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
+    """`forward`, with the aux loss summed over the MoE blocks: (logits,
+    aux f32 scalar, 0 for the other families)."""
     check_family(cfg)
     x = embed(params["embed"], tokens, cfg)
     positions = _positions(tokens.shape[0], 0, tokens.shape[1], tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     if cfg.family == "hybrid":
         x = _hybrid_forward(params, x, positions, cfg)
     else:
-        def body(h, i):
-            return _block_fwd(_layer(params["layers"], i), h, cfg,
-                              positions=positions)[0]
-        body = _remat(body, cfg)
-        for i in range(cfg.n_layers):
-            x = body(x, i)
+        for name in _stacks(params):
+            def body(h, i, stack=params[name]):
+                h, _, a = _block_fwd(_layer(stack, i), h, cfg, positions=positions)
+                return h, a
+            body = _remat(body, cfg)
+            for i in range(_n_layers(params[name])):
+                x, a = body(x, i)
+                aux = aux + a
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return unembed(params["embed"], x, cfg)
+    return unembed(params["embed"], x, cfg), aux
 
 
 def _hybrid_forward(params: Params, x, positions, cfg: ModelConfig):
@@ -188,10 +232,10 @@ def _hybrid_forward(params: Params, x, positions, cfg: ModelConfig):
 def loss_fn(params: Params, batch: TrainBatch, cfg: ModelConfig,
             aux_coef: float = 0.01):
     """Next-token cross-entropy over the padded vocab, plus a 1e-4 z-loss
-    and `aux_coef` times the aux loss (0 for the ported families).
-    Returns (loss, {"nll", "aux", "zloss"}), all f32 scalars."""
-    logits = forward(params, batch.tokens, cfg).float()
-    aux = logits.new_zeros(())
+    and `aux_coef` times the MoE blocks' summed aux loss (0 for the other
+    families).  Returns (loss, {"nll", "aux", "zloss"}), all f32 scalars."""
+    logits, aux = _forward(params, batch.tokens, cfg)
+    logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     # the gold logit by gather: the same value as the reference's masked
     # sum (one non-zero term), without a (B, S, V) mask
@@ -204,9 +248,10 @@ def loss_fn(params: Params, batch: TrainBatch, cfg: ModelConfig,
 
 # ======================================================== caches + decode step
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
-    """Zero-filled cache: dense {"layers": (k, v)}, each (L, B, max_seq, K,
-    Dh); hybrid {"mamba": MambaState stacked over the L layers, "attn":
-    (k, v)}, each (L // attn_every, B, max_seq, K, Dh)."""
+    """Zero-filled cache: dense and MoE {"layers": (k, v)}, each (L, B,
+    max_seq, K, Dh), and {"pre_layers": (k, v)} of the first dense blocks
+    when the model has them; hybrid {"mamba": MambaState stacked over the
+    L layers, "attn": (k, v)}, each (L // attn_every, B, max_seq, K, Dh)."""
     check_family(cfg)
     ct = torch_dtype(cfg.compute_dtype)
 
@@ -219,7 +264,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
         st = ssm_mod.init_mamba_state(cfg, batch, device)
         mamba = ssm_mod.MambaState(*(t.new_zeros((cfg.n_layers, *t.shape)) for t in st))
         return {"mamba": mamba, "attn": kv(cfg.n_layers // cfg.attn_every)}
-    return {"layers": kv(cfg.n_layers)}
+    n_pre = _n_pre(cfg)
+    out = {"layers": kv(cfg.n_layers - n_pre)}
+    if n_pre:
+        out["pre_layers"] = kv(n_pre)
+    return out
 
 
 def decode_step(params: Params, cache, tokens: torch.Tensor, pos: int,
@@ -232,10 +281,11 @@ def decode_step(params: Params, cache, tokens: torch.Tensor, pos: int,
     if cfg.family == "hybrid":
         x = _hybrid_decode(params, cache, x, positions, pos, cfg)
     else:
-        ck, cv = cache["layers"]
-        for i in range(cfg.n_layers):
-            x, _ = _block_fwd(_layer(params["layers"], i), x, cfg, positions=positions,
-                              cache=(ck[i], cv[i]), cache_index=pos)
+        for name in _stacks(params):
+            ck, cv = cache[name]
+            for i in range(_n_layers(params[name])):
+                x, _, _ = _block_fwd(_layer(params[name], i), x, cfg, positions=positions,
+                                     cache=(ck[i], cv[i]), cache_index=pos)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     logits = unembed(params["embed"], x[:, 0], cfg)[..., :cfg.vocab]
     return logits, cache
@@ -256,8 +306,8 @@ def _hybrid_decode(params: Params, cache, x, positions, pos: int, cfg: ModelConf
             full[i].copy_(new)
         if _shared_block_after(cfg, i):
             g = i // cfg.attn_every
-            x, _ = _block_fwd(params["shared_attn"], x, cfg, positions=positions,
-                              cache=(ck[g], cv[g]), cache_index=pos)
+            x, _, _ = _block_fwd(params["shared_attn"], x, cfg, positions=positions,
+                                 cache=(ck[g], cv[g]), cache_index=pos)
     return x
 
 
@@ -279,13 +329,15 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
     if cfg.family == "hybrid":
         x, cache = _hybrid_prefill(params, x, positions, cfg)
     else:
-        ks, vs = [], []
-        for i in range(cfg.n_layers):
-            x, (k, v) = _block_fwd(_layer(params["layers"], i), x, cfg,
-                                   positions=positions, return_kv=True)
-            ks.append(k)
-            vs.append(v)
-        cache = {"layers": (torch.stack(ks), torch.stack(vs))}
+        cache = {}
+        for name in _stacks(params):
+            ks, vs = [], []
+            for i in range(_n_layers(params[name])):
+                x, (k, v), _ = _block_fwd(_layer(params[name], i), x, cfg,
+                                          positions=positions, return_kv=True)
+                ks.append(k)
+                vs.append(v)
+            cache[name] = (torch.stack(ks), torch.stack(vs))
     x = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
     logits = unembed(params["embed"], x[:, 0], cfg)[..., :cfg.vocab]
     return logits, cache
@@ -301,8 +353,8 @@ def _hybrid_prefill(params: Params, x, positions, cfg: ModelConfig):
         x = x + d
         states.append(st)
         if _shared_block_after(cfg, i):
-            x, (kk, vv) = _block_fwd(params["shared_attn"], x, cfg, positions=positions,
-                                     return_kv=True)
+            x, (kk, vv), _ = _block_fwd(params["shared_attn"], x, cfg,
+                                        positions=positions, return_kv=True)
             ks.append(kk)
             vs.append(vv)
     mamba = ssm_mod.MambaState(*(torch.stack(t) for t in zip(*states)))

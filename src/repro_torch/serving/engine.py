@@ -5,11 +5,13 @@ left-padded batch, prefilled once, then decoded greedily step by step;
 finished sequences stop collecting tokens.  This is the execution payload
 of the paper's *on-demand* job class.
 
-The cache follows the reference's `_grow`: it is `max_seq` long when the
-prompt length S is the largest axis of the (L, B, S, K, Dh) prefill cache,
-and stays S long otherwise.  Then every decode step writes its k/v into the
-last row (`models.layers.gqa_fwd`, as JAX's `dynamic_update_slice` clamps),
-so short prompts give the reference's tokens too.
+The cache follows the reference's `_grow`, leaf by leaf (`layers` and, in
+an MoE model with dense first blocks, `pre_layers`): a leaf is `max_seq`
+long when the prompt length S is the largest axis of its (L, B, S, K, Dh)
+prefill cache, and stays S long otherwise.  Then every decode step writes
+its k/v into the last row (`models.layers.gqa_fwd`, as JAX's
+`dynamic_update_slice` clamps), so short prompts give the reference's
+tokens too.
 
 As in the reference, pads are token 0 and prefill and decode attend to them
 (the prompt is not masked), so the port's tokens equal the reference's.
@@ -24,8 +26,9 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from repro_torch.models import decode_step, init_cache, prefill
+from repro_torch.models import decode_step, prefill
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import check_family
 
@@ -53,7 +56,9 @@ class Request:
 
 class ServeEngine:
     """Greedy batched decoding on `device`, for at most max_seq positions.
-    params must already live on that device."""
+    params must already live on that device.  `step_seconds` holds the
+    last batch's decode steps, each from its launch to its tokens on the
+    host (`time.monotonic`)."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_seq: int = 512,
                  eos_id: Optional[int] = None, device="cuda"):
@@ -67,6 +72,7 @@ class ServeEngine:
         self.max_seq = max_seq
         self.eos_id = eos_id
         self.device = torch.device(device)
+        self.step_seconds: List[float] = []
 
     def serve_batch(self, requests: List[Request]) -> List[Request]:
         """Run a padded batch of requests to completion."""
@@ -80,12 +86,8 @@ class ServeEngine:
             toks[i, S - lens[i]:] = r.prompt    # left-pad to align last token
         logits, cache = prefill(self.params, torch.from_numpy(toks).to(self.device),
                                 self.cfg)
-        if S < self.max_seq and S == max(cache["layers"][0].shape):
-            pre = cache
-            cache = init_cache(self.cfg, B, self.max_seq, self.device)
-            for full, part in zip(cache["layers"], pre["layers"]):
-                full[:, :, :S] = part
-            del pre
+        cache = {name: tuple(_grow(c, self.max_seq) for c in kv)
+                 for name, kv in cache.items()}
         next_tok = logits.argmax(dim=-1)
         first = next_tok.tolist()
         live = np.ones((B,), bool)
@@ -94,14 +96,17 @@ class ServeEngine:
         for i, r in enumerate(requests):
             r.first_token_at = now
             r.tokens_out.append(first[i])
+        self.step_seconds = []
         for step in range(1, n_steps):
             pos = S + step - 1
             if pos >= self.max_seq:
                 break
+            t0 = time.monotonic()
             logits, cache = decode_step(self.params, cache, next_tok[:, None],
                                         pos, self.cfg)
             next_tok = logits.argmax(dim=-1)
             toks_host = next_tok.tolist()
+            self.step_seconds.append(time.monotonic() - t0)
             for i, r in enumerate(requests):
                 if not live[i]:
                     continue
@@ -116,3 +121,13 @@ class ServeEngine:
         for r in requests:
             r.done_at = r.done_at or now
         return requests
+
+
+def _grow(c: torch.Tensor, max_seq: int) -> torch.Tensor:
+    """The reference's `_grow`: zero-pad a prefill cache leaf to max_seq on
+    its seq axis, the first of axes -3 and -2 that is shorter than max_seq
+    and the leaf's largest axis; other leaves come back as they are."""
+    for ax in (-3, -2):
+        if c.ndim >= 3 and 0 < c.shape[ax] < max_seq and c.shape[ax] == max(c.shape):
+            return F.pad(c, [0, 0] * (-ax - 1) + [0, max_seq - c.shape[ax]])
+    return c

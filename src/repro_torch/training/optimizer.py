@@ -17,6 +17,12 @@ import torch
 
 Tree = Dict[str, Any]
 
+# `update` holds about five f32 temporaries of the leaf it updates; a leaf
+# larger than this (an MoE model's stacked experts: 8 layers of olmoe's w1
+# are 1.07e9 elements, 4.3 GB in f32) is updated one slice of its leading
+# (layer) axis at a time, the same elementwise arithmetic
+UPDATE_SLICE_ELEMS = 1 << 27
+
 
 def tree_map(fn, tree: Tree, *rest: Tree) -> Tree:
     """fn over the leaves of nested dicts of the same keys."""
@@ -83,6 +89,10 @@ class AdamW(NamedTuple):
         c2 = 1 - torch.pow(torch.tensor(self.b2, device=stepf.device), stepf)
 
         def upd(g, m, v, p):
+            if p.dim() > 1 and p.numel() > UPDATE_SLICE_ELEMS:
+                for parts in zip(g, m, v, p):     # views along axis 0
+                    upd(*parts)
+                return p
             g = g.float() * scale
             m.mul_(self.b1).add_((1 - self.b1) * g)
             v.mul_(self.b2).add_((1 - self.b2) * g * g)

@@ -575,3 +575,87 @@ def test_decision_sweep_on_the_card_equals_the_cpu(cuda):
             assert g.dtype == c.dtype and np.array_equal(g, c), kernel
     rep32 = T.run_device_sweep(cells, dtype="float32", device="cuda")
     assert rep32.parity_ok, rep32.mismatches[:5]
+
+
+def _moe_variant(name):
+    """Reduced olmoe (f32) as it is, with capacity factor 0.5 ("dropping":
+    prefill drops assignments), or with a shared expert and a dense first
+    block ("shared_dense")."""
+    import dataclasses
+
+    from repro_torch.configs.reduced import reduced
+    cfg = reduced("olmoe_1b_7b")
+    if name == "dropping":
+        return cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    if name == "shared_dense":
+        return cfg.with_(moe=dataclasses.replace(cfg.moe, n_shared=1, first_dense=1,
+                                                 d_first_dense=256))
+    return cfg
+
+
+def _moe_prompts(cfg, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab, n, dtype=np.int32) for n in (40, 57, 64, 33)]
+
+
+@pytest.mark.parametrize("variant", ["base", "dropping", "shared_dense"])
+def test_moe_reduced_on_the_card(cuda, variant):
+    """Reduced olmoe in f32 on the card (flash_attention, flash_decode and
+    the attention backward) against the same seeded params on the CPU:
+    prefill logits within 1e-4, `ServeEngine`'s greedy tokens equal, and
+    one train step's loss, grad norm and params within 1e-4 (AdamW eps
+    1e-3, as tests/test_torch_training.py explains)."""
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.training import (AdamW, make_train_state, make_train_step,
+                                      synthetic_batch)
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = _moe_variant(variant)
+    params = init_params(cfg, seed=0, device="cpu")
+    prompts = _moe_prompts(cfg, 5)
+    toks = torch.from_numpy(np.stack([np.pad(p, (64 - len(p), 0)) for p in prompts]))
+    opt = AdamW(lr=1e-3, eps=1e-3, warmup=1, total_steps=4)
+    out = {}
+    n0 = _launch_counts()
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        logits, _ = prefill(p, toks.to(dev), cfg)
+        reqs = [Request(rid=i, prompt=pr, max_new_tokens=8) for i, pr in enumerate(prompts)]
+        ServeEngine(cfg, p, max_seq=128, device=dev).serve_batch(reqs)
+        state, m = make_train_step(cfg, opt)(make_train_state(p, opt),
+                                             synthetic_batch(cfg, 2, 64, device=dev))
+        out[dev] = (logits.cpu(), [r.tokens_out for r in reqs], m, state.params)
+    torch.cuda.synchronize()
+    (lc, tc, mc, pc), (lg, tg, mg, pg) = out["cpu"], out["cuda"]
+    assert _err(lg, lc) < 1e-4
+    assert tg == tc
+    for k in ("loss", "grad_norm", "aux"):
+        assert abs(float(mg[k]) - float(mc[k])) <= 1e-4 * max(1.0, abs(float(mc[k]))), k
+    for a, b in zip(tree_leaves(pc), tree_leaves(pg)):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+    fwd, bwd, dec, ssd_fwd, ssd_bwd = (a - b for a, b in zip(_launch_counts(), n0))
+    L = cfg.n_layers
+    # prefill twice (one alone, one in the engine), 7 decode steps, one step
+    assert (fwd, bwd, dec, ssd_fwd, ssd_bwd) == (3 * L, L, 7 * L, 0, 0)
+
+
+def test_moe_serving_on_the_card_is_deterministic(cuda):
+    """bf16 reduced olmoe with a shared expert and a dense first block: a
+    second serve of the same requests on the same engine gives the same
+    tokens (no float atomics in dispatch or combine)."""
+    from repro_torch.models import init_params
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = _moe_variant("shared_dense").with_(param_dtype="bfloat16",
+                                             compute_dtype="bfloat16")
+    engine = ServeEngine(cfg, init_params(cfg, seed=0, device="cuda"), max_seq=128,
+                         device="cuda")
+    tokens = []
+    for _ in range(2):
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
+                for i, p in enumerate(_moe_prompts(cfg, 6))]
+        engine.serve_batch(reqs)
+        tokens.append([r.tokens_out for r in reqs])
+    assert tokens[0] == tokens[1]
+    assert all(len(t) == 16 for t in tokens[0])

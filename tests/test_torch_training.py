@@ -380,3 +380,27 @@ def test_train_step_kernel_calls_match_chip_smokes_count(rigs, monkeypatch, rema
     want = _chip_smoke().train_launches(cfg, microbatches=2)
     assert calls == {k: want[k] for k in calls}
     assert want["ssd_scan_bwd"] == 2 * 5 and want["flash_attention_bwd"] == 2 * 2
+
+
+def test_adamw_updates_a_large_leaf_slice_by_slice_bit_for_bit(monkeypatch):
+    """A leaf above UPDATE_SLICE_ELEMS is updated one axis-0 slice at a time
+    (the f32 temporaries stay one layer's size); the params and moments are
+    bit for bit those of the whole-leaf update."""
+    from repro_torch.training import optimizer
+    g = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn(4, 30, 20, generator=g).bfloat16(),
+              "b": torch.randn(50, generator=g)}
+    grads = {k: torch.randn(v.shape, generator=g) for k, v in params.items()}
+    opt = AdamW(lr=1e-3, warmup=1, total_steps=4)
+    out = []
+    for limit in (1 << 30, 1000):
+        monkeypatch.setattr(optimizer, "UPDATE_SLICE_ELEMS", limit)
+        p = {k: v.clone() for k, v in params.items()}
+        state = opt.init(p)
+        for _ in range(2):
+            p, state, gnorm = opt.update(grads, state, p)
+        out.append((p, state, gnorm))
+    (p1, s1, n1), (p2, s2, n2) = out
+    assert torch.equal(n1, n2)
+    for a, b in ((p1, p2), (s1.m, s2.m), (s1.v, s2.v)):
+        assert all(torch.equal(a[k], b[k]) for k in a)
