@@ -577,6 +577,39 @@ def test_decision_sweep_on_the_card_equals_the_cpu(cuda):
     assert rep32.parity_ok, rep32.mismatches[:5]
 
 
+def test_campaign_grid_replay_on_the_card_equals_the_cpu(cuda, monkeypatch):
+    """The `faulty` campaign's grid (examples/campaigns/faulty.toml, offline)
+    replayed through the decision sweep on the card equals the same replay
+    on the CPU: in float64 both are parity_ok with no mismatch and no
+    dropped call, over the same calls, and every output is equal."""
+    import dataclasses
+    from pathlib import Path
+
+    from repro_torch.campaign import CampaignSpec
+    from repro_torch.core import decision_torch as T
+
+    monkeypatch.setenv("REPRO_OFFLINE", "1")
+    toml = Path(__file__).resolve().parents[1] / "examples" / "campaigns" / "faulty.toml"
+    exp, _regimes = CampaignSpec.load(str(toml)).to_experiment(offline=True, processes=0)
+    exp = dataclasses.replace(exp, device="torch", device_capture=4096)
+    on_card = exp.run()
+    on_cpu = dataclasses.replace(exp, sweep_device="cpu").run()
+    reports = (on_card.device_report, on_cpu.device_report)
+    for rep in reports:
+        assert rep.dtype == "float64" and rep.parity_ok
+        assert rep.n_mismatches == 0 and rep.n_dropped == 0
+    assert reports[0].n_calls == reports[1].n_calls > 2000
+    cells = [(str(i), r.decision_trace) for i, r in enumerate(on_card.runs)]
+    batches, _index, _pads = T._build_batches(cells, "float64")
+    card = T.to_numpy(T._sweep_program(T.to_device(batches, "cuda")))
+    cpu = T.to_numpy(T._sweep_program(T.to_device(batches, "cpu")))
+    for kernel, outs in cpu.items():
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        got = card[kernel] if isinstance(card[kernel], tuple) else (card[kernel],)
+        for g, c in zip(got, outs, strict=True):
+            assert g.dtype == c.dtype and np.array_equal(g, c), kernel
+
+
 def _moe_variant(name):
     """Reduced olmoe (f32) as it is, with capacity factor 0.5 ("dropping":
     prefill drops assignments), or with a shared expert and a dense first
