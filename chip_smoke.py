@@ -181,10 +181,42 @@ Phases, in order; any failure raises and the script exits non-zero:
                 results/faults/mtbf_sweep.json byte for byte, and no
                 hand-written kernel launched (counts zeroed just before,
                 read just after).
+  17. xLSTM parity -- reduced xlstm-350m in f32 (TF32 off) at an mLSTM
+                chunk of 32, the same seeded params on the card and on the
+                CPU: a 64-token prefill (two chunks: the carry and the final
+                state) and 8 greedy decode steps (logits, the prefill's and
+                the last step's cache leaves within 1e-4, tokens equal); one
+                train step (phase 6's checks, f32 and bf16); then
+                `ops.mlstm_scan` against `ref.naive_mlstm` at xlstm-350m's
+                head shape (4 heads of 512, chunk 256, 2 x 1024 tokens, f32)
+                within 1e-4 of the largest magnitude, with the scan's device
+                time (`Clock`) beside its bound, max(FLOPs / 67e12, bytes /
+                3.35e12).  No hand-written kernel may launch: xLSTM has none
+                (the mLSTM scan and the sLSTM time loop are plain torch, as
+                the reference's are jnp).
+  18. xLSTM serve -- xlstm-350m at full width and depth (24 blocks: 4
+                groups of one sLSTM and 5 mLSTM blocks, d_model 1024), bf16,
+                random weights from seed 0, served through `prefill` and
+                greedy `decode_step` (the engine refuses recurrent models,
+                as the reference's does): 8 prompts of 512 tokens, 64 new.
+                Prints TTFT, tok/s, the median decode step, peak memory and
+                the step's byte bound (every parameter, from the leaves,
+                plus every state read and written), and a `torch.profiler`
+                split of one prefill and one decode step; a second serve
+                must give the same tokens; no kernel launches.
+  19. xLSTM train -- `repro_torch.launch.train.main` at xlstm-350m's full
+                width and depth, bf16, remat "full", 4 microbatches, 2 steps
+                of 8 x 1024 tokens (the sequence cut from 2048: a step there
+                passed 90 s); finite losses, the first near ln(vocab),
+                no kernel launches.  Prints the step times, tokens/s, peak
+                memory, and one sLSTM block's forward and forward + backward
+                timed alone at the microbatch's shape, with the share of a
+                step they make up (each step runs each sLSTM block per
+                microbatch forward, then again with its backward).
   8. a JSON line {"decision_sweep": [...]} (phase 12's rows), a JSON line
      {"campaign_sweep": [...]} (phase 16's), then a JSON line {"kernels":
-     [...]} with each kernel's launches in phases 5, 7, 9, 10, 11, 14, 15
-     and 16 and its numbers at its main path's shapes.
+     [...]} with each kernel's launches in phases 5, 7, 9, 10, 11, 14, 15,
+     16, 18 and 19 and its numbers at its main path's shapes.
   last, the line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package `repro`.
@@ -293,6 +325,17 @@ MOE_HEADS = dict(H=16, K=16, D=128)
 # Phase 15's: olmoe-1b-7b cut to MOE_TRAIN_LAYERS layers, MOE_TRAIN_STEPS
 # steps of MOE_TRAIN_BATCH x MOE_TRAIN_SEQ tokens (2 x 2048 a microbatch)
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 8, 3, 8, 2048
+# Phase 17's: the reduced xLSTM at an mLSTM chunk of 32 (its 64-token
+# prompt runs the inter-chunk carry), and the mLSTM scan at xlstm-350m's
+# head shape (4 heads of 512, chunk 256) over 2 x 1024 tokens
+XLSTM_PARITY_CHUNK = 32
+XLSTM_SCAN = dict(b=2, s=1024, h=4, d=512, chunk=256)
+# Phase 18's: full-width xlstm-350m serving 8 prompts of 512 tokens (two
+# mLSTM chunks) and 64 new tokens; phase 19's: 2 steps of 8 x 1024, the
+# sequence cut from 2048 because a step there passed 90 s (the sLSTM's
+# time loop is host-paced: PERF.md section 5); layers and widths are whole
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_NEW = 8, 512, 64
+XLSTM_TRAIN_STEPS, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ = 2, 8, 1024
 
 
 def moe_serve_batch():
@@ -876,14 +919,16 @@ def train_launches(cfg, microbatches: int) -> dict:
 
 
 # ------------------------------------------------------------ 6. train parity
-def train_parity(torch):
-    from repro_torch.configs.reduced import reduced
+def train_parity(torch, cfg, tag: str = "train_parity"):
+    """One train step of the reduced cfg (f32 params and compute) from the
+    same seeded params on the card and on the CPU: loss, grad norm and
+    params within 1e-4; then the same step in bf16, loss and grad norm
+    within 2e-2 relative.  Printed under `tag`."""
     from repro_torch.models import init_params
     from repro_torch.training import (AdamW, make_train_state, make_train_step,
                                       synthetic_batch)
     from repro_torch.training.optimizer import tree_leaves
 
-    cfg = reduced("zamba2_1p2b")                    # f32 params and compute
     # eps 1e-3: Adam's first update g / (|g| + eps) would otherwise divide
     # the f32 noise of near-zero gradient elements by their own size
     opt = AdamW(lr=1e-3, eps=1e-3, warmup=1, total_steps=4)
@@ -899,13 +944,15 @@ def train_parity(torch):
         worst = max(worst, abs(mg[k] - mc[k]) / max(1.0, abs(mc[k])))
     for a, b in zip(tree_leaves(pc), tree_leaves(pg)):
         worst = max(worst, float(((b.cpu() - a).abs() / (1 + a.abs())).max()))
-    print(json.dumps({"train_parity": {"cpu": mc, "cuda": mg, "max_err": worst}}))
+    print(json.dumps({tag: {"cpu": mc, "cuda": mg, "max_err": worst}}))
     if not worst <= 1e-4:
-        raise AssertionError(f"reduced zamba2 train step differs cuda vs cpu by {worst} > 1e-4")
+        raise AssertionError(f"reduced {cfg.name} train step differs cuda vs cpu by "
+                             f"{worst} > 1e-4")
 
     # bf16: the tensor-core attention kernels round P and dS to bf16 before
     # their products (the plain versions keep f32), and the bf16 step rounds
-    # every activation; 2e-2 relative on the loss and the grad norm
+    # every activation (cuBLAS and the CPU round in another order); 2e-2
+    # relative on the loss and the grad norm
     cfg = cfg.with_(param_dtype="bfloat16", compute_dtype="bfloat16")
     out = {}
     for dev in ("cpu", "cuda"):
@@ -915,19 +962,20 @@ def train_parity(torch):
         out[dev] = {k: float(v) for k, v in m.items()}
     mc, mg = out["cpu"], out["cuda"]
     worst = max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("loss", "grad_norm"))
-    print(json.dumps({"train_parity_bf16": {"cpu": mc, "cuda": mg, "max_rel_err": worst}}))
+    print(json.dumps({tag + "_bf16": {"cpu": mc, "cuda": mg, "max_rel_err": worst}}))
     if not worst <= 2e-2:
-        raise AssertionError(f"bf16 reduced zamba2 train step differs cuda vs cpu by "
+        raise AssertionError(f"bf16 reduced {cfg.name} train step differs cuda vs cpu by "
                              f"{worst} > 2e-2 relative")
 
 
-def _greedy(torch, params, cfg, toks, n_new: int, cache_rows: int):
-    """Hybrid serving as the reference serves it (`prefill`, then greedy
-    `decode_step`; no engine): prefill the prompts, grow the attention
-    cache to `cache_rows` rows, decode n_new - 1 tokens, each to the host
-    as the engine takes it.  Returns (the prefill's logits and cache, each
-    decode step's logits, the tokens (B, n_new), TTFT s, each decode
-    step's s)."""
+def _greedy(torch, params, cfg, toks, n_new: int, cache_rows: int = 0):
+    """Hybrid and xLSTM serving as the reference serves them (`prefill`,
+    then greedy `decode_step`; no engine): prefill the prompts, grow a
+    hybrid model's attention cache to `cache_rows` rows, decode n_new - 1
+    tokens, each to the host as the engine takes it.  Returns (the
+    prefill's logits and a copy of its cache leaves, each decode step's
+    logits, the tokens (B, n_new), TTFT s, each decode step's s, the cache
+    after the last step)."""
     from repro_torch.models import decode_step, prefill
     S = toks.shape[1]
     sync = torch.cuda.synchronize if toks.is_cuda else (lambda: None)
@@ -935,13 +983,14 @@ def _greedy(torch, params, cfg, toks, n_new: int, cache_rows: int):
         sync()
         t0 = time.perf_counter()
         logits, cache = prefill(params, toks, cfg)
-        pre = (logits, [t.clone() for t in (*cache["mamba"], *cache["attn"])])
-        grown = []
-        for c in cache["attn"]:
-            full = c.new_zeros((*c.shape[:2], cache_rows, *c.shape[3:]))
-            full[:, :, :S] = c
-            grown.append(full)
-        cache["attn"] = tuple(grown)
+        pre = (logits, [t.clone() for leaves in cache.values() for t in leaves])
+        if "attn" in cache:
+            grown = []
+            for c in cache["attn"]:
+                full = c.new_zeros((*c.shape[:2], cache_rows, *c.shape[3:]))
+                full[:, :, :S] = c
+                grown.append(full)
+            cache["attn"] = tuple(grown)
         tok = logits.argmax(-1)
         out = [tok.tolist()]
         ttft = time.perf_counter() - t0
@@ -953,7 +1002,7 @@ def _greedy(torch, params, cfg, toks, n_new: int, cache_rows: int):
             out.append(tok.tolist())
             step_s.append(time.perf_counter() - ts)
             steps.append(logits)
-    return pre, steps, [list(t) for t in zip(*out)], ttft, step_s
+    return pre, steps, [list(t) for t in zip(*out)], ttft, step_s, cache
 
 
 def hybrid_serve_parity(torch):
@@ -971,8 +1020,8 @@ def hybrid_serve_parity(torch):
     toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 64)))
     out = {dev: _greedy(torch, p, cfg, toks.to(dev), 9, 72)
            for dev, p in (("cpu", params), ("cuda", _to(params, "cuda")))}
-    (cl, cc), csteps, ctoks, _, _ = out["cpu"]
-    (gl, gc), gsteps, gtoks, _, _ = out["cuda"]
+    (cl, cc), csteps, ctoks, _, _, _ = out["cpu"]
+    (gl, gc), gsteps, gtoks, _, _, _ = out["cuda"]
     err = {"logits": max(float((g.cpu() - c).abs().max())
                          for g, c in zip([gl, *gsteps], [cl, *csteps]))}
     leaf_ok = True
@@ -1179,7 +1228,7 @@ def full_width_hybrid_serve(torch, fa, fd, ssd):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counters = _zeroed_counters(fa, fd, ssd)
-    (logits, cache), steps, tokens, ttft, step_s = _greedy(
+    (logits, cache), steps, tokens, ttft, step_s, _ = _greedy(
         torch, params, cfg, toks, HYBRID_NEW, HYBRID_CACHE)
     torch.cuda.synchronize()
     launches = counters()
@@ -1796,6 +1845,257 @@ def campaigns_on_card(torch, fa, fd, ssd) -> tuple:
     return rows, launches
 
 
+# -------------------------------------------------------- 17. xLSTM parity
+def _no_launches(launches: dict, what: str) -> None:
+    """xLSTM has no hand-written kernel (its mLSTM scan and sLSTM loop are
+    plain torch, as the reference's are jnp): fail if one launched."""
+    print(f"launches {launches}, expected none")
+    if any(launches.values()):
+        raise AssertionError(f"{what}: a hand-written kernel launched: {launches}")
+
+
+def mlstm_scan_cost(b, s, h, d, chunk):
+    """(FLOPs, bytes) of the chunked mLSTM scan in f32: per chunk and head
+    the causal (t, u) pairs of q.k and of the weighted scores times v, q
+    times the carried C and the chunk's (w.k)^T v; q, k, v and the gates
+    read once, y written once."""
+    nc = s // chunk
+    pairs = chunk * (chunk + 1) // 2
+    flops = b * h * nc * (2 * 2 * pairs * d + 2 * 2 * chunk * d * d)
+    nbytes = 4 * (4 * b * s * h * d + 2 * b * s * h)
+    return flops, nbytes
+
+
+def xlstm_parity(torch, fa, fd, ssd):
+    """Reduced xlstm-350m in f32 (TF32 off), mLSTM chunk XLSTM_PARITY_CHUNK,
+    the same seeded params on the card and on the CPU: a 64-token prefill
+    and 8 greedy decode steps (logits, the prefill's and the last step's
+    cache leaves within 1e-4, tokens equal), then one train step (phase 6's
+    `train_parity`).  Then `ops.mlstm_scan` against `ref.naive_mlstm` at
+    XLSTM_SCAN in f32, within 1e-4 of the largest magnitude, and the scan's
+    device time beside its bound.  No hand-written kernel launches."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import init_params
+
+    cfg = reduced("xlstm_350m")
+    cfg = cfg.with_(xlstm=dataclasses.replace(cfg.xlstm, chunk=XLSTM_PARITY_CHUNK))
+    counters = _zeroed_counters(fa, fd, ssd)
+    params = init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 64)))
+    out = {dev: _greedy(torch, p, cfg, toks.to(dev), 9)
+           for dev, p in (("cpu", params), ("cuda", _to(params, "cuda")))}
+    (cl, cc), csteps, ctoks, _, _, cfinal = out["cpu"]
+    (gl, gc), gsteps, gtoks, _, _, gfinal = out["cuda"]
+    err = {"logits": max(float((g.cpu() - c).abs().max())
+                         for g, c in zip([gl, *gsteps], [cl, *csteps]))}
+    names = [f"{k}.{f}" for k, st in cfinal.items() for f in st._fields]
+    finals = ([t for st in gfinal.values() for t in st], [t for st in cfinal.values() for t in st])
+    leaf_ok = True
+    for when, (gs, cs) in (("prefill", (gc, cc)), ("decoded", finals)):
+        for name, g, c in zip(names, gs, cs):
+            err[f"{when} {name}"] = float((g.cpu().float() - c.float()).abs().max())
+            leaf_ok &= torch.allclose(g.cpu(), c, atol=1e-4, rtol=1e-4)
+    print(json.dumps({"xlstm_serve_parity": {"max_abs_err": err, "tokens_equal": gtoks == ctoks,
+                                             "tokens": gtoks[0]}}))
+    if not (err["logits"] <= 1e-4 and leaf_ok and gtoks == ctoks):
+        raise AssertionError(f"reduced xlstm serving differs cuda vs cpu: {err}, "
+                             f"tokens equal {gtoks == ctoks}")
+    train_parity(torch, cfg, "xlstm_train_parity")
+
+    # the chunked scan at the full model's head shape, against the oracle
+    b, s, h, d, chunk = (XLSTM_SCAN[k] for k in ("b", "s", "h", "d", "chunk"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale + shift
+    # q and k at the model's dh ** -0.5 scale, forget gates around the
+    # model's bias (linspace(3, 6))
+    args = (rnd(b, s, h, d, scale=d ** -0.5), rnd(b, s, h, d, scale=d ** -0.5),
+            rnd(b, s, h, d), rnd(b, s, h), rnd(b, s, h, scale=2.0, shift=4.5))
+    with torch.no_grad():
+        y = ops.mlstm_scan(*args, chunk=chunk)
+        y_ref = ref.naive_mlstm(*args)
+        rel = float((y - y_ref).abs().max() / y_ref.abs().max())
+        clock = Clock(torch)
+        ms, host_ms = clock(lambda: ops.mlstm_scan(*args, chunk=chunk), 5)
+        naive_ms, naive_host_ms = clock(lambda: ref.naive_mlstm(*args), 2)
+        del clock
+    flops, nbytes = mlstm_scan_cost(b, s, h, d, chunk)
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / HBM_BYTES_PER_S
+    row = {**XLSTM_SCAN, "dtype": "float32", "max_rel_err": rel, "ms": ms,
+           "host_ms": host_ms, "naive_ms": naive_ms, "naive_host_ms": naive_host_ms,
+           "bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes}
+    print(json.dumps({"mlstm_scan_full_width": row}))
+    if not rel <= 1e-4:
+        raise AssertionError(f"mlstm_scan differs from naive_mlstm by {rel} > 1e-4 relative")
+    _no_launches(counters(), "xlstm parity")
+
+
+# --------------------------------------------------------- 18. xLSTM serve
+def full_width_xlstm_serve(torch, fa, fd, ssd):
+    """xlstm-350m at full width and depth (24 blocks in 4 groups of one
+    sLSTM and 5 mLSTM blocks, d_model 1024), bf16, random weights from seed
+    0, serving XLSTM_BATCH prompts of XLSTM_PROMPT tokens and XLSTM_NEW new
+    tokens greedy through `prefill` and `decode_step`.  Counts are zeroed
+    just before the first serve and read just after; a second serve of the
+    same prompts must give the same tokens; one prefill and one decode step
+    run under torch.profiler.  Returns the launches."""
+    import gc
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.training.optimizer import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    cfg = get_config("xlstm_350m")
+    params = init_params(cfg, seed=0, device="cuda")
+    # the real leaves: the config's param_count() undercounts xLSTM
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (XLSTM_BATCH, XLSTM_PROMPT))).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _zeroed_counters(fa, fd, ssd)
+    (logits, _), steps, tokens, ttft, step_s, cache = _greedy(
+        torch, params, cfg, toks, XLSTM_NEW)
+    torch.cuda.synchronize()
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(lg).all()) for lg in steps)
+    leaves = [t for st in cache.values() for t in st]
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    c_bytes = cache["mlstm"].C.numel() * cache["mlstm"].C.element_size()
+    del steps
+    decode_s = sum(step_s)
+    n_tok = XLSTM_BATCH * XLSTM_NEW
+    # a decode step reads every weight (the tied embedding is the unembed),
+    # reads and writes every state
+    step_bytes = param_bytes + 2 * state_bytes
+    stats = {"ttft_s": ttft, "decode_s": decode_s, "tok_per_s": n_tok / (ttft + decode_s),
+             "decode_tok_per_s": XLSTM_BATCH * (XLSTM_NEW - 1) / decode_s,
+             "decode_step_ms_median": 1e3 * sorted(step_s)[len(step_s) // 2],
+             "decode_step_ms_first_last": [1e3 * step_s[0], 1e3 * step_s[-1]],
+             "max_memory_allocated": peak, "allocated_before_params": before,
+             "phase_peak_bytes": peak - before, "params": n_params,
+             "param_bytes": param_bytes, "config_param_count": cfg.param_count(),
+             "state_bytes": state_bytes, "mlstm_C_bytes": c_bytes,
+             "decode_step_bytes": step_bytes,
+             "decode_step_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S}
+    print(json.dumps({"xlstm_serve": stats, "launches": launches,
+                      "first_tokens": [t[0] for t in tokens]}), flush=True)
+    _no_launches(launches, "xlstm serve")
+    if not (finite and all(len(t) == XLSTM_NEW and all(0 <= v < cfg.vocab for v in t)
+                           for t in tokens)):
+        raise AssertionError("non-finite logits, or a request without "
+                             f"{XLSTM_NEW} tokens in the vocab")
+    again = _greedy(torch, params, cfg, toks, XLSTM_NEW)[2]
+    print(f"xlstm serve deterministic: {again == tokens}")
+    if again != tokens:
+        raise AssertionError("a second serve of the same prompts gave other tokens")
+    # where a prefill's and a decode step's time goes
+    with torch.no_grad():
+        (lg, cache), pre = profile_call(torch, lambda: prefill(params, toks, cfg))
+        nxt = lg.argmax(-1)[:, None]
+        decode_step(params, cache, nxt, XLSTM_PROMPT, cfg)          # warm
+        _, dec = profile_call(torch, lambda: decode_step(params, cache, nxt,
+                                                         XLSTM_PROMPT + 1, cfg))
+    print(json.dumps({"xlstm_profile": {"prefill": pre, "decode_step": dec}}), flush=True)
+    del params, cache, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------- 19. xLSTM train
+def slstm_loop_seconds(torch, cfg, batch: int, seq: int) -> dict:
+    """Host-clock seconds of one sLSTM block at the train step's
+    microbatch shape: its forward without grad (the checkpointed forward)
+    and its forward then backward (the recompute and the backward), each
+    synced, the median of 3 after one warm-up."""
+    from repro_torch.models import ssm
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lp = {k: v.requires_grad_(True) for k, v in ssm.init_slstm(gen, cfg).items()}
+    x = torch.randn((batch, seq, cfg.d_model), device="cuda", dtype=torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad():
+            ssm.slstm_fwd(lp, x, cfg)
+
+    def fwd_bwd():
+        y, _ = ssm.slstm_fwd(lp, x, cfg)
+        y.float().sum().backward()
+
+    out = {}
+    for name, fn in (("forward", fwd), ("forward_backward", fwd_bwd)):
+        fn()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[name] = sorted(times)[1]
+    return out
+
+
+def full_width_xlstm_train(torch, fa, fd, ssd):
+    """xlstm-350m at full width and depth, bf16, remat "full", its 4
+    microbatches, XLSTM_TRAIN_STEPS steps of XLSTM_TRAIN_BATCH x
+    XLSTM_TRAIN_SEQ through `launch.train.main`.  Counts zeroed just before,
+    read just after.  Then one sLSTM block timed alone at the microbatch's
+    shape, for the serial loop's share of a step.  Returns the launches."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import main as train_main
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--arch", "xlstm-350m", "--steps", str(XLSTM_TRAIN_STEPS),
+            "--batch", str(XLSTM_TRAIN_BATCH), "--seq", str(XLSTM_TRAIN_SEQ)]
+    counters = _zeroed_counters(fa, fd, ssd)
+    stats = train_main(argv)
+    launches = counters()
+    print(json.dumps({"xlstm_train": stats, "launches": launches}), flush=True)
+    _no_launches(launches, "xlstm train")
+    cfg = get_config("xlstm_350m")
+    losses = stats["losses"]
+    if not (len(losses) == XLSTM_TRAIN_STEPS and all(math.isfinite(x) for x in losses)
+            and abs(losses[0] - math.log(cfg.vocab)) < 1.5):
+        raise AssertionError(f"losses {losses}: not {XLSTM_TRAIN_STEPS} finite, or the first "
+                             f"far from ln {cfg.vocab} = {math.log(cfg.vocab):.2f}")
+    tokens = XLSTM_TRAIN_BATCH * XLSTM_TRAIN_SEQ
+    steady = min(stats["step_seconds"][1:])
+    # each step runs every sLSTM block, per microbatch, forward without
+    # grad (remat), then forward and backward (the recompute, the backward)
+    mb = cfg.train_microbatches
+    loop = slstm_loop_seconds(torch, cfg, XLSTM_TRAIN_BATCH // mb, XLSTM_TRAIN_SEQ)
+    n_slstm = cfg.n_layers // cfg.xlstm.slstm_every
+    slstm_s = n_slstm * mb * (loop["forward"] + loop["forward_backward"])
+    print(json.dumps({"step_seconds": stats["step_seconds"],
+                      "tokens_per_s": stats["tokens_per_s"],
+                      "steady_tokens_per_s": tokens / steady,
+                      "max_memory_allocated": stats["max_memory_allocated"],
+                      "slstm_block_s": loop, "slstm_s_per_step": slstm_s,
+                      "slstm_share_of_steady_step": slstm_s / steady}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1809,6 +2109,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.configs.reduced import reduced
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
@@ -1849,7 +2150,7 @@ def main(argv=None) -> int:
     serve_launches = full_width_serve(torch, fa, fd)
 
     phase("6. train and serve parity (reduced zamba2, f32 and bf16, cuda vs cpu)")
-    train_parity(torch)
+    train_parity(torch, reduced("zamba2_1p2b"))
     hybrid_serve_parity(torch)
 
     phase("7. full-width zamba2-1.2b train (bf16, 38 layers, 3 steps)")
@@ -1885,6 +2186,19 @@ def main(argv=None) -> int:
           "replayed on the card in f64, mini also in f32; launch/fault_sweep)")
     campaign_rows, campaign_launches = campaigns_on_card(torch, fa, fd, ssd)
 
+    phase(f"17. xLSTM parity (reduced xlstm-350m, f32 and bf16, cuda vs cpu; the mLSTM "
+          f"scan at dh {XLSTM_SCAN['d']} against naive_mlstm)")
+    xlstm_parity(torch, fa, fd, ssd)
+
+    phase(f"18. full-width xlstm-350m serve (bf16, 24 layers, {XLSTM_BATCH} x "
+          f"{XLSTM_PROMPT} prompt tokens, {XLSTM_NEW} new)")
+    xlstm_serve_launches = full_width_xlstm_serve(torch, fa, fd, ssd)
+
+    phase(f"19. full-width xlstm-350m train (bf16, 24 layers, {XLSTM_TRAIN_STEPS} steps of "
+          f"{XLSTM_TRAIN_BATCH} x {XLSTM_TRAIN_SEQ}: the sequence cut from 2048, "
+          "where a step passed 90 s)")
+    xlstm_train_launches = full_width_xlstm_train(torch, fa, fd, ssd)
+
     phase("8. kernels")
     main_shape = {
         "flash_attention": ("bfloat16", dict(B=8, S=512, H=32, K=8, D=128)),
@@ -1916,7 +2230,9 @@ def main(argv=None) -> int:
                    "launchers": launcher_launches[name],
                    "moe_serve": moe_serve_launches[name],
                    "moe_train": moe_train_launches[name],
-                   "campaigns": campaign_launches[name]}
+                   "campaigns": campaign_launches[name],
+                   "xlstm_serve": xlstm_serve_launches[name],
+                   "xlstm_train": xlstm_train_launches[name]}
         kernels.append({"name": name, "route": "cuda", "source": meta[name][0],
                         "replaces": meta[name][1], "launches": sum(by_path.values()),
                         "launches_by_path": by_path,

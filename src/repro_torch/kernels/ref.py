@@ -2,8 +2,9 @@
 
 `naive_attention` is the counterpart of `repro.kernels.ref.naive_attention`:
 it materializes the full score matrix in float32.  `naive_ssd` is that of
-`repro.kernels.ref.naive_ssd`, the sequential Mamba-2 recurrence.
-`naive_mlstm` comes with the xLSTM slice.
+`repro.kernels.ref.naive_ssd`, the sequential Mamba-2 recurrence, and
+`naive_mlstm` that of `repro.kernels.ref.naive_mlstm`, the sequential xLSTM
+matrix-memory recurrence (the oracle of `ops.mlstm_scan`).
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -66,3 +68,34 @@ def naive_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         ys.append(torch.einsum("bhpn,bn->bhp", st, Cf[:, t]))
     y = torch.stack(ys, dim=1) + xf * D.float()[None, None, :, None]
     return y.to(x.dtype)
+
+
+def naive_mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                i_gate: torch.Tensor, f_gate: torch.Tensor) -> torch.Tensor:
+    """xLSTM mLSTM reference: sequential matrix-memory recurrence.
+
+    q, k, v: (b, s, h, d); i_gate, f_gate: (b, s, h) pre-activations.
+    Stabilized exponential gating per the xLSTM paper; the stabilizer
+    starts at -inf, as the reference's does.  Returns (b, s, h, d) in q's
+    dtype; the state is f32.
+    """
+    b, s, h, d = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    logf = F.logsigmoid(f_gate.float())                   # (b,s,h)
+    i_ = i_gate.float()
+    Cm = qf.new_zeros((b, h, d, d))
+    nm = qf.new_zeros((b, h, d))
+    m = qf.new_full((b, h), float("-inf"))
+    ys = []
+    for t in range(s):
+        m_new = torch.maximum(logf[:, t] + m, i_[:, t])
+        fd = torch.exp(logf[:, t] + m - m_new)            # (b,h)
+        id_ = torch.exp(i_[:, t] - m_new)
+        Cm = Cm * fd[..., None, None] + id_[..., None, None] * \
+            (kf[:, t, :, :, None] * vf[:, t, :, None, :])
+        nm = nm * fd[..., None] + id_[..., None] * kf[:, t]
+        num = (qf[:, t, :, None, :] @ Cm)[:, :, 0]
+        den = torch.abs((qf[:, t] * nm).sum(-1))
+        ys.append(num / torch.maximum(den, torch.exp(-m_new))[..., None])
+        m = m_new
+    return torch.stack(ys, dim=1).to(q.dtype)

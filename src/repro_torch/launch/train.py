@@ -24,6 +24,7 @@ from repro_torch.configs.reduced import reduce_config
 from repro_torch.models import init_params
 from repro_torch.training import (AdamW, checkpoint, make_train_state,
                                   make_train_step, synthetic_batch)
+from repro_torch.training.optimizer import tree_leaves
 
 
 def main(argv=None) -> dict:
@@ -58,14 +59,17 @@ def main(argv=None) -> dict:
     if args.batch % cfg.train_microbatches:
         raise ValueError(f"--batch {args.batch} does not split into "
                          f"{cfg.train_microbatches} microbatches")
-    print(f"arch={cfg.name} params~{cfg.param_count()/1e6:.0f}M "
+    params = init_params(cfg, seed=0, device=device)
+    # the leaves, not cfg.param_count(): the config's formula undercounts
+    # xLSTM (its copy keeps the reference's)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"arch={cfg.name} params={n_params/1e6:.0f}M "
           f"layers={cfg.n_layers} microbatches={cfg.train_microbatches} "
           f"remat={cfg.remat} dtype={cfg.param_dtype} device={device}")
 
     opt = AdamW(lr=args.lr, warmup=min(100, args.steps // 10 + 1),
                 total_steps=args.steps)
-    state = make_train_state(init_params(cfg, seed=0, device=device), opt,
-                             compress=args.compress_grads)
+    state = make_train_state(params, opt, compress=args.compress_grads)
     start = 0
     if args.ckpt_dir and checkpoint.latest_step(args.ckpt_dir) is not None:
         start = checkpoint.latest_step(args.ckpt_dir)

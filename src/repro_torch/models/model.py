@@ -1,22 +1,27 @@
 """Model assembly: init / forward / loss / prefill / decode.
 
-The port's counterpart of `repro.models.model` for three families:
+The port's counterpart of `repro.models.model` for four families:
 
   dense  : [GQA attention + SwiGLU] blocks with pre-RMSNorm; trained,
            prefilled and decoded.
   moe    : the same blocks with a routed-expert FFN (`models/moe.py`, one
            device) in place of SwiGLU, after `moe.first_dense` dense blocks
            (`pre_layers`); each MoE block adds its load-balance aux loss.
+  ssm    : xLSTM, groups of one sLSTM block and `slstm_every - 1` mLSTM
+           blocks (`models/ssm.py`); trained, prefilled and decoded.
   hybrid : a Mamba-2 stack with one *shared-weight* GQA+SwiGLU block
            applied every `attn_every` layers (Zamba-style); trained,
            prefilled and decoded.
 
-Per-layer params are stacked on axis 0 under the reference's keys, and a
+Per-layer params are stacked on axis 0 under the reference's keys (xLSTM:
+sLSTM (G, ...) and mLSTM (G, slstm_every - 1, ...) over its G groups), and a
 Python loop over layers takes the place of `lax.scan`.  The dense and MoE
 cache is {"layers": (k, v)}, each (L, B, S, K, Dh), plus {"pre_layers":
 (k, v)} for the first dense blocks; the hybrid cache is the reference's
 {"mamba": MambaState of (L, ...) stacks, "attn": (k, v)}, each
-(L // attn_every, B, S, K, Dh), one per application of the shared block.
+(L // attn_every, B, S, K, Dh), one per application of the shared block;
+the xLSTM cache is {"slstm": SLSTMState of (G, ...) stacks, "mlstm":
+MLSTMState of (G, slstm_every - 1, ...) stacks}, O(1) in the sequence.
 `decode_step` writes each layer's new row and state into them in place.
 
 Other families raise `NotImplementedError` naming the ROADMAP item (queue 1)
@@ -39,12 +44,10 @@ Params = Dict[str, Any]
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise unless cfg is a dense or MoE GQA model or a hybrid Mamba-2 one
-    (MLA first: deepseek-v2 is MoE and MLA)."""
+    """Raise unless cfg is a dense or MoE GQA model, an xLSTM or a hybrid
+    Mamba-2 one (MLA first: deepseek-v2 is MoE and MLA)."""
     if cfg.mla:
         item = "MLA"
-    elif cfg.family == "ssm":
-        item = "recurrent families"
     elif cfg.family in ("vlm", "audio"):
         item = "VLM and audio"
     else:
@@ -111,6 +114,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     if cfg.family == "hybrid":
         p["layers"] = ssm_mod.init_mamba2(gen, cfg, lead=(cfg.n_layers,))
         p["shared_attn"] = _init_block(gen, cfg, device)
+    elif cfg.family == "ssm":
+        G, n_m = _xlstm_groups(cfg)
+        p["slstm"] = ssm_mod.init_slstm(gen, cfg, lead=(G,))
+        p["mlstm"] = ssm_mod.init_mlstm(gen, cfg, lead=(G, n_m))
     else:
         n_pre = _n_pre(cfg)
         if n_pre:
@@ -118,6 +125,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
         p["layers"] = _init_block(gen, cfg, device, lead=(cfg.n_layers - n_pre,),
                                   moe_layer=cfg.moe is not None)
     return p
+
+
+def _xlstm_groups(cfg: ModelConfig):
+    """(G, n_m): an xLSTM's groups, each one sLSTM block then n_m mLSTM
+    blocks."""
+    every = cfg.xlstm.slstm_every
+    assert cfg.n_layers % every == 0, "xlstm group structure"
+    return cfg.n_layers // every, every - 1
 
 
 def _n_pre(cfg: ModelConfig) -> int:
@@ -174,8 +189,9 @@ class TrainBatch(NamedTuple):
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, padded_vocab).  Layers (dense, MoE) or
-    groups and tail layers (hybrid) are checkpointed as cfg.remat says."""
+    """tokens (B, S) -> logits (B, S, padded_vocab).  Layers (dense, MoE),
+    groups and their mLSTM blocks (xLSTM) or groups and tail layers
+    (hybrid) are checkpointed as cfg.remat says."""
     return _forward(params, tokens, cfg)[0]
 
 
@@ -188,6 +204,8 @@ def _forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     if cfg.family == "hybrid":
         x = _hybrid_forward(params, x, positions, cfg)
+    elif cfg.family == "ssm":
+        x = _xlstm_forward(params, x, cfg)
     else:
         for name in _stacks(params):
             def body(h, i, stack=params[name]):
@@ -229,6 +247,30 @@ def _hybrid_forward(params: Params, x, positions, cfg: ModelConfig):
     return x
 
 
+def _xlstm_forward(params: Params, x, cfg: ModelConfig):
+    """Each group: the sLSTM block, then its mLSTM blocks, each block
+    residual.  As in the reference, each group is checkpointed and so is
+    each mLSTM block inside it."""
+    G, n_m = _xlstm_groups(cfg)
+
+    def m_body(h, lp):
+        return h + ssm_mod.mlstm_fwd(lp, h, cfg)[0]
+
+    m_body = _remat(m_body, cfg)
+
+    def group_body(h, gi):
+        h = h + ssm_mod.slstm_fwd(_layer(params["slstm"], gi), h, cfg)[0]
+        mp = _layer(params["mlstm"], gi)
+        for j in range(n_m):
+            h = m_body(h, _layer(mp, j))
+        return h
+
+    group_body = _remat(group_body, cfg)
+    for gi in range(G):
+        x = group_body(x, gi)
+    return x
+
+
 def loss_fn(params: Params, batch: TrainBatch, cfg: ModelConfig,
             aux_coef: float = 0.01):
     """Next-token cross-entropy over the padded vocab, plus a 1e-4 z-loss
@@ -251,7 +293,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     """Zero-filled cache: dense and MoE {"layers": (k, v)}, each (L, B,
     max_seq, K, Dh), and {"pre_layers": (k, v)} of the first dense blocks
     when the model has them; hybrid {"mamba": MambaState stacked over the
-    L layers, "attn": (k, v)}, each (L // attn_every, B, max_seq, K, Dh)."""
+    L layers, "attn": (k, v)}, each (L // attn_every, B, max_seq, K, Dh);
+    xLSTM {"slstm": SLSTMState stacked over the G groups, "mlstm":
+    MLSTMState stacked (G, slstm_every - 1)}, zero but the stabilizers
+    (-1e30), whatever max_seq."""
     check_family(cfg)
     ct = torch_dtype(cfg.compute_dtype)
 
@@ -264,6 +309,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
         st = ssm_mod.init_mamba_state(cfg, batch, device)
         mamba = ssm_mod.MambaState(*(t.new_zeros((cfg.n_layers, *t.shape)) for t in st))
         return {"mamba": mamba, "attn": kv(cfg.n_layers // cfg.attn_every)}
+    if cfg.family == "ssm":
+        G, n_m = _xlstm_groups(cfg)
+        s_st = ssm_mod.init_slstm_state(cfg, batch, device)
+        m_st = ssm_mod.init_mlstm_state(cfg, batch, device)
+        return {"slstm": ssm_mod.SLSTMState(*(t.expand(G, *t.shape).clone() for t in s_st)),
+                "mlstm": ssm_mod.MLSTMState(*(t.expand(G, n_m, *t.shape).clone()
+                                              for t in m_st))}
     n_pre = _n_pre(cfg)
     out = {"layers": kv(cfg.n_layers - n_pre)}
     if n_pre:
@@ -274,12 +326,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
 def decode_step(params: Params, cache, tokens: torch.Tensor, pos: int,
                 cfg: ModelConfig):
     """One token for every sequence.  tokens: (B, 1); pos: the cache index
-    it is written at.  Updates cache in place; returns (logits (B, V), cache)."""
+    it is written at (unused by xLSTM).  Updates cache in place; returns
+    (logits (B, V), cache)."""
     check_family(cfg)
     x = embed(params["embed"], tokens, cfg)
     positions = _positions(x.shape[0], pos, 1, x.device)
     if cfg.family == "hybrid":
         x = _hybrid_decode(params, cache, x, positions, pos, cfg)
+    elif cfg.family == "ssm":
+        x = _xlstm_decode(params, cache, x, cfg)
     else:
         for name in _stacks(params):
             ck, cv = cache[name]
@@ -311,6 +366,27 @@ def _hybrid_decode(params: Params, cache, x, positions, pos: int, cfg: ModelConf
     return x
 
 
+def _xlstm_decode(params: Params, cache, x, cfg: ModelConfig):
+    """The reference's xLSTM decode: each block's one-token recurrence from
+    its state in cache["slstm"] / cache["mlstm"], written back in place."""
+    G, n_m = _xlstm_groups(cfg)
+    s_cache, m_cache = cache["slstm"], cache["mlstm"]
+    for gi in range(G):
+        d, st = ssm_mod.slstm_fwd(_layer(params["slstm"], gi), x, cfg,
+                                  state=ssm_mod.SLSTMState(*(t[gi] for t in s_cache)))
+        x = x + d
+        for full, new in zip(s_cache, st):
+            full[gi].copy_(new)
+        mp = _layer(params["mlstm"], gi)
+        for j in range(n_m):
+            d, st = ssm_mod.mlstm_fwd(_layer(mp, j), x, cfg,
+                                      state=ssm_mod.MLSTMState(*(t[gi, j] for t in m_cache)))
+            x = x + d
+            for full, new in zip(m_cache, st):
+                full[gi, j].copy_(new)
+    return x
+
+
 def _shared_block_after(cfg: ModelConfig, i: int) -> bool:
     """Whether the shared block follows Mamba-2 layer i: it closes each full
     group of `attn_every` layers; the tail layers have none."""
@@ -321,13 +397,16 @@ def _shared_block_after(cfg: ModelConfig, i: int) -> bool:
 # ---------------------------------------------------------------- prefill
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
     """Process a full prompt; returns (last-token logits (B, V), cache), the
-    cache as `init_cache` lays it out, S rows long.  A hybrid prompt longer
-    than one SSD chunk must be a multiple of it, as in the reference."""
+    cache as `init_cache` lays it out, S rows long.  A hybrid (xLSTM) prompt
+    longer than one SSD (mLSTM) chunk must be a multiple of it, as in the
+    reference."""
     check_family(cfg)
     x = embed(params["embed"], tokens, cfg)
     positions = _positions(tokens.shape[0], 0, tokens.shape[1], tokens.device)
     if cfg.family == "hybrid":
         x, cache = _hybrid_prefill(params, x, positions, cfg)
+    elif cfg.family == "ssm":
+        x, cache = _xlstm_prefill(params, x, cfg)
     else:
         cache = {}
         for name in _stacks(params):
@@ -359,3 +438,27 @@ def _hybrid_prefill(params: Params, x, positions, cfg: ModelConfig):
             vs.append(vv)
     mamba = ssm_mod.MambaState(*(torch.stack(t) for t in zip(*states)))
     return x, {"mamba": mamba, "attn": (torch.stack(ks), torch.stack(vs))}
+
+
+def _xlstm_prefill(params: Params, x, cfg: ModelConfig):
+    """The reference's xLSTM prefill: every block runs over the prompt and
+    keeps its state after the last token (the mLSTM through the chunked
+    scan's final state)."""
+    G, n_m = _xlstm_groups(cfg)
+
+    def stack(states, cls):
+        return cls(*(torch.stack(t) for t in zip(*states)))
+
+    s_states, m_states = [], []
+    for gi in range(G):
+        d, st = ssm_mod.slstm_fwd(_layer(params["slstm"], gi), x, cfg, return_state=True)
+        x = x + d
+        s_states.append(st)
+        mp, group = _layer(params["mlstm"], gi), []
+        for j in range(n_m):
+            d, st = ssm_mod.mlstm_fwd(_layer(mp, j), x, cfg, return_state=True)
+            x = x + d
+            group.append(st)
+        m_states.append(stack(group, ssm_mod.MLSTMState))
+    return x, {"slstm": stack(s_states, ssm_mod.SLSTMState),
+               "mlstm": stack(m_states, ssm_mod.MLSTMState)}

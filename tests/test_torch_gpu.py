@@ -692,3 +692,100 @@ def test_moe_serving_on_the_card_is_deterministic(cuda):
         tokens.append([r.tokens_out for r in reqs])
     assert tokens[0] == tokens[1]
     assert all(len(t) == 16 for t in tokens[0])
+
+
+def _xlstm_cfg():
+    """Reduced xlstm-350m (f32) at an mLSTM chunk of 32, so a 64-token
+    prompt runs the inter-chunk carry."""
+    import dataclasses
+
+    from repro_torch.configs.reduced import reduced
+    cfg = reduced("xlstm_350m")
+    return cfg.with_(xlstm=dataclasses.replace(cfg.xlstm, chunk=32))
+
+
+def _leaves(cache):
+    return [t for st in cache.values() for t in st]
+
+
+def test_xlstm_reduced_serving_on_the_card(cuda):
+    """Reduced xLSTM in f32 on the card against the same seeded params on
+    the CPU: prefill logits and every cache leaf within 1e-4, 8 greedy
+    decode steps with logits within 1e-4 and equal tokens, the cache after
+    them within 1e-4.  No hand-written kernel launches: the mLSTM scan and
+    the sLSTM loop are plain torch, as the reference's are jnp."""
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = _xlstm_cfg()
+    params = init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (2, 64)))
+    out = {}
+    n0 = _launch_counts()
+    for dev, p in (("cpu", params), ("cuda", _to(params, "cuda"))):
+        logits, cache = prefill(p, toks.to(dev), cfg)
+        pre = (logits.cpu(), [t.cpu().clone() for t in _leaves(cache)])
+        tok, steps = logits.argmax(-1), []
+        for i in range(8):
+            logits, cache = decode_step(p, cache, tok[:, None], 64 + i, cfg)
+            tok = logits.argmax(-1)
+            steps.append((logits.cpu(), tok.tolist()))
+        out[dev] = pre, steps, [t.cpu() for t in _leaves(cache)]
+    torch.cuda.synchronize()
+    (cl, cc), cs, cfinal = out["cpu"]
+    (gl, gc), gs, gfinal = out["cuda"]
+    assert _err(gl, cl) < 1e-4
+    for g, c in zip(gc + gfinal, cc + cfinal, strict=True):
+        torch.testing.assert_close(g, c, atol=1e-4, rtol=1e-4)
+    for (g, gt), (c, ct) in zip(gs, cs):
+        assert gt == ct and _err(g, c) < 1e-4
+    assert _launch_counts() == n0
+
+
+def test_xlstm_train_step_on_the_card_equals_the_cpu(cuda):
+    """One train step of reduced xLSTM in f32: loss, grad norm and params
+    within 1e-4 of the CPU's (AdamW eps 1e-3, as
+    tests/test_torch_training.py explains); no kernel launches."""
+    from repro_torch.models import init_params
+    from repro_torch.training import (AdamW, make_train_state, make_train_step,
+                                      synthetic_batch)
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = _xlstm_cfg()
+    params = init_params(cfg, seed=0, device="cpu")
+    opt = AdamW(lr=1e-3, eps=1e-3, warmup=1, total_steps=4)
+    out = {}
+    n0 = _launch_counts()
+    for dev in ("cpu", "cuda"):
+        state, m = make_train_step(cfg, opt, microbatches=2)(
+            make_train_state(_to(params, dev), opt), synthetic_batch(cfg, 4, 64, device=dev))
+        out[dev] = (m, state.params)
+    torch.cuda.synchronize()
+    (mc, pc), (mg, pg) = out["cpu"], out["cuda"]
+    for k in ("loss", "grad_norm"):
+        assert abs(float(mg[k]) - float(mc[k])) <= 1e-4 * max(1.0, abs(float(mc[k]))), k
+    for a, b in zip(tree_leaves(pc), tree_leaves(pg)):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+    assert _launch_counts() == n0
+
+
+@pytest.mark.parametrize("s", [512, 1024])
+def test_mlstm_scan_at_the_models_head_dim_on_the_card(cuda, s):
+    """`ops.mlstm_scan` at xlstm-350m's head shape (4 heads of 512, chunk
+    256) in f32 on the card: within 1e-4 of `ref.naive_mlstm` on the card
+    and of the scan on the CPU (output and final state), relative to the
+    largest magnitude."""
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(s)
+    b, h, d = 2, 4, 512
+    args = [_rnd(rng, (b, s, h, d), torch.float32, "cpu") * d ** -0.5,
+            _rnd(rng, (b, s, h, d), torch.float32, "cpu") * d ** -0.5,
+            _rnd(rng, (b, s, h, d), torch.float32, "cpu"),
+            _rnd(rng, (b, s, h), torch.float32, "cpu"),
+            _rnd(rng, (b, s, h), torch.float32, "cpu") * 2 + 4.5]
+    y, state = ops.mlstm_scan(*(a.cuda() for a in args), chunk=256, return_final_state=True)
+    y_naive = ref.naive_mlstm(*(a.cuda() for a in args))
+    y_cpu, state_cpu = ops.mlstm_scan(*args, chunk=256, return_final_state=True)
+    assert _rel(y, y_naive) <= 1e-4
+    for g, c in zip((y, *state), (y_cpu, *state_cpu), strict=True):
+        assert g.dtype == torch.float32 and _rel(g.cpu(), c) <= 1e-4

@@ -243,15 +243,17 @@ def test_from_jax_params_widens_bf16_exactly():
 def test_unported_families_raise(arch):
     from repro_torch.serving import ServeEngine
     cfg = reduced(arch)
-    if cfg.family == "hybrid":
+    if cfg.family in ("hybrid", "ssm"):
         # trains and serves through prefill / decode_step; the engine refuses
         # it, with the reference's reason (its engine refuses it too)
         params = init_params(cfg, device="cpu")
         with pytest.raises(NotImplementedError, match="attention-family"):
             ServeEngine(cfg, params, device="cpu")
-        return
-    if arch == "olmoe_1b_7b":
-        # ported: the reference's key tree and shapes, and the engine takes it
+        if cfg.family == "hybrid":
+            return
+    if arch in ("olmoe_1b_7b", "xlstm_350m"):
+        # ported: the reference's key tree and shapes (xLSTM: its nested
+        # (G, n_m, ...) mLSTM stacks), and the engine takes olmoe
         params = init_params(cfg, device="cpu")
         jshapes = jax.eval_shape(lambda k: jmodel.init_params(k, jreduced(arch)),
                                  jax.random.PRNGKey(0))
@@ -259,7 +261,8 @@ def test_unported_families_raise(arch):
         tflat = jax.tree_util.tree_flatten_with_path(params)[0]
         assert [(p, tuple(a.shape)) for p, a in jflat] == \
             [(p, tuple(t.shape)) for p, t in tflat]
-        ServeEngine(cfg, params, device="cpu")
+        if cfg.family == "moe":
+            ServeEngine(cfg, params, device="cpu")
         return
     # deepseek-v2 is MoE and MLA: it waits for MLA, and says so
     item = "MLA" if arch == "deepseek_v2_236b" else "ROADMAP queue 1"
