@@ -42,7 +42,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                 prefill of 8 prompts padded to the longest, its decode over
                 the 1024-row cache at the first and the last valid length,
                 and phase 15's attention forward and backward of 2 x 2048
-                tokens; and, in f32,
+                tokens; the attention forward's Dv != D instances (MLA's
+                prefill) at phase 21's 8 x 512 tokens of deepseek-v2-236b's
+                128 heads (D 192, Dv 128) in bf16, and at phase 20's shapes
+                (reduced f32 and bf16, D 48 / Dv 32; full-width bf16 at 2 x
+                63); and, in f32,
                 at the shapes phase 11 gives them (the serve demo's two
                 prefills and decodes over their prompt-long caches,
                 quickstart's attention forward and backward).  Tolerance: 1e-4 in f32 and 2e-2
@@ -213,10 +217,41 @@ Phases, in order; any failure raises and the script exits non-zero:
                 timed alone at the microbatch's shape, with the share of a
                 step they make up (each step runs each sLSTM block per
                 microbatch forward, then again with its backward).
+  20. MLA parity -- reduced deepseek-v2 (MoE with a dense first block,
+                and MLA) in f32 (TF32 off), the same seeded params on the
+                card and on the CPU: a 64-token prefill (logits and both
+                latent leaves of both stacks) and 8 greedy decode steps
+                (logits, the leaves after them) within 1e-4, tokens equal;
+                then bf16 MLA on the card against the CPU from the same
+                inputs, every block of the reduced model and one layer at
+                deepseek-v2-236b's widths (prefill out, c_kv, k_rope, an
+                absorbed decode step and the leaves after it), within 2e-2
+                of the largest magnitude; the whole reduced model's bf16
+                logits gap beside the tokens whose top-k routing flipped
+                between card and CPU, held to 2e-2 when none did.  Every
+                prefill launches flash_attention's Dv != D instance once a
+                layer; no other kernel launches.
+  21. MLA serve -- deepseek-v2-236b at full width (d_model 5120, 128 heads,
+                kv_lora 512, q_lora 1536, 160 experts top-6 plus 2 shared,
+                vocab 102,400) with its depth cut to 8 of 60 layers (the
+                dense first block and 7 MoE blocks, 58.39 GB of bf16
+                weights: 60 layers are about 470 GB), random weights from
+                seed 0, built once; `ServeEngine` serves 8 prompts of
+                384-512 tokens padded to 512 (at least kv_lora: a shorter
+                batch fails in decode, as the reference's does), 64 new.
+                Prints the widths and block sizes, TTFT, tok/s, the median
+                decode step, peak memory, the step's byte bound (weights
+                but the unused embedding rows, both latent leaves over 576
+                rows, one row written), the cache bytes a token and layer
+                against GQA's at these heads, and a `torch.profiler` split
+                of one prefill and one decode step; a second serve must
+                give the same tokens; the first serve launches
+                flash_attention's Dv != D instance once a layer (its one
+                prefill) and no other kernel.
   8. a JSON line {"decision_sweep": [...]} (phase 12's rows), a JSON line
      {"campaign_sweep": [...]} (phase 16's), then a JSON line {"kernels":
      [...]} with each kernel's launches in phases 5, 7, 9, 10, 11, 14, 15,
-     16, 18 and 19 and its numbers at its main path's shapes.
+     16, 18, 19 and 21 and its numbers at its main path's shapes.
   last, the line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package `repro`.
@@ -336,6 +371,22 @@ XLSTM_SCAN = dict(b=2, s=1024, h=4, d=512, chunk=256)
 # time loop is host-paced: PERF.md section 5); layers and widths are whole
 XLSTM_BATCH, XLSTM_PROMPT, XLSTM_NEW = 8, 512, 64
 XLSTM_TRAIN_STEPS, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ = 2, 8, 1024
+# Phase 20's: reduced deepseek-v2 from a 64-token prompt (its kv_lora) and
+# 8 greedy steps; one MLA layer at the full widths from 2 x 64 tokens in
+# bf16.  Phase 21's: deepseek-v2-236b at full width cut to MLA_LAYERS
+# layers (the dense first block and 7 MoE blocks, 58.39 GB of bf16
+# weights; its 60 layers are about 470 GB), MLA_REQUESTS prompts of
+# MLA_PROMPT tokens, the first MLA_PROMPT[1] long, so the batch is padded
+# to MLA_PROMPT[1]: at least kv_lora (512), under which the engine's `_grow`,
+# the reference's rule, leaves c_kv prompt-long and the first decode step
+# raises, as the reference's does; MLA_NEW new tokens
+MLA_PARITY_PROMPT, MLA_PARITY_NEW = 64, 9
+MLA_LAYERS, MLA_REQUESTS, MLA_PROMPT, MLA_NEW = 8, 8, (384, 512), 64
+MLA_MAX_SEQ = MLA_PROMPT[1] + MLA_NEW
+# MLA prefill's attention heads: deepseek-v2-236b's 128 heads, D = d_nope +
+# d_rope = 192 and Dv = d_v = 128, and its reduced sibling's 4 of 48 / 32
+MLA_ATTN = dict(H=128, K=128, D=192, Dv=128)
+MLA_ATTN_REDUCED = dict(H=4, K=4, D=48, Dv=32)
 
 
 def moe_serve_batch():
@@ -527,14 +578,24 @@ def kernel_cases(torch, F, fa, fd, clock):
     cases += [("flash_decode", "bfloat16", dict(B=moe_b, S=MOE_MAX_SEQ, **MOE_HEADS, vlen=vl))
               for vl in (moe_s + 1, moe_s + MOE_NEW - 1)]
     cases += [("flash_attention", "bfloat16", dict(B=2, S=MOE_TRAIN_SEQ, **MOE_HEADS))]
+    # MLA's prefill (Dv != D): phase 21's (8 x 512 at deepseek-v2-236b's 128
+    # heads of 192 / 128), phase 20's reduced f32 prefill and its bf16 MLA
+    # layers (2 x 63 tokens: the prefill before the decode step), reduced
+    # and at full width
+    cases += [("flash_attention", "bfloat16", dict(MLA_ATTN, B=MLA_REQUESTS, S=MLA_PROMPT[1])),
+              ("flash_attention", "float32", dict(MLA_ATTN_REDUCED, B=2, S=MLA_PARITY_PROMPT)),
+              ("flash_attention", "bfloat16",
+               dict(MLA_ATTN_REDUCED, B=2, S=MLA_PARITY_PROMPT - 1)),
+              ("flash_attention", "bfloat16", dict(MLA_ATTN, B=2, S=MLA_PARITY_PROMPT - 1))]
 
     for kname, dtn, c in cases:
         dt = getattr(torch, dtn)
         B, S, H, K, D = c["B"], c["S"], c["H"], c["K"], c["D"]
+        Dv = c.get("Dv", D)
         scale = 1.0 / math.sqrt(D)
         vlen = c.get("vlen")
         sq = 1 if kname == "flash_decode" else S
-        q, k, v = rnd((B, sq, H, D), dt), rnd((B, S, K, D), dt), rnd((B, S, K, D), dt)
+        q, k, v = rnd((B, sq, H, D), dt), rnd((B, S, K, D), dt), rnd((B, S, K, Dv), dt)
         qf, kf, vf = q.float(), k.float(), v.float()
         if kname == "flash_attention":
             run = lambda: fa.flash_attention(q, k, v, causal=True, scale=scale)  # noqa: E731
@@ -558,7 +619,7 @@ def kernel_cases(torch, F, fa, fd, clock):
         if not (out.shape == ref.shape and out.dtype == dt and err <= TOL[dtn]):
             raise AssertionError(f"{kname} {dtn} {c}: max_abs_err {err} > {TOL[dtn]} "
                                  f"or shape/dtype {tuple(out.shape)}/{out.dtype}")
-        flops, nbytes = attention_cost(B, sq, S, H, K, D, D, q.element_size(),
+        flops, nbytes = attention_cost(B, sq, S, H, K, D, Dv, q.element_size(),
                                        vlen=vlen)
         row = {"kernel": kname, "dtype": dtn, **c, "max_abs_err": err,
                **timed_row(torch, clock, run, plain, lib, iters, flops, nbytes, dtn)}
@@ -653,6 +714,7 @@ def full_width_serve(torch, fa, fd):
             "--min-prompt-len", "384", "--max-new", "64", "--max-seq", "1024",
             "--dtype", "bfloat16"]
     fa.flash_attention.launches = 0
+    fa.flash_attention.mla_launches = 0
     fd.flash_decode.launches = 0
     stats = serve_main(argv)
     launches = {"flash_attention": fa.flash_attention.launches,
@@ -663,6 +725,7 @@ def full_width_serve(torch, fa, fd):
     print(f"launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
+    _no_mla_launches(fa, launches, "serve")
     if any(len(o) != 64 or not all(0 <= t < 128256 for t in o) for o in outputs):
         raise AssertionError("a request did not return 64 tokens in the vocab")
     if not (math.isfinite(stats["tok_per_s"]) and stats["ttft_s_max"] > 0):
@@ -970,8 +1033,9 @@ def train_parity(torch, cfg, tag: str = "train_parity"):
 
 def _greedy(torch, params, cfg, toks, n_new: int, cache_rows: int = 0):
     """Hybrid and xLSTM serving as the reference serves them (`prefill`,
-    then greedy `decode_step`; no engine): prefill the prompts, grow a
-    hybrid model's attention cache to `cache_rows` rows, decode n_new - 1
+    then greedy `decode_step`; no engine): prefill the prompts, grow the
+    attention caches (a hybrid model's `attn`; dense, MoE and MLA
+    `pre_layers` and `layers`) to `cache_rows` rows, decode n_new - 1
     tokens, each to the host as the engine takes it.  Returns (the
     prefill's logits and a copy of its cache leaves, each decode step's
     logits, the tokens (B, n_new), TTFT s, each decode step's s, the cache
@@ -984,13 +1048,14 @@ def _greedy(torch, params, cfg, toks, n_new: int, cache_rows: int = 0):
         t0 = time.perf_counter()
         logits, cache = prefill(params, toks, cfg)
         pre = (logits, [t.clone() for leaves in cache.values() for t in leaves])
-        if "attn" in cache:
-            grown = []
-            for c in cache["attn"]:
-                full = c.new_zeros((*c.shape[:2], cache_rows, *c.shape[3:]))
-                full[:, :, :S] = c
-                grown.append(full)
-            cache["attn"] = tuple(grown)
+        for name in ("attn", "pre_layers", "layers"):
+            if name in cache:
+                grown = []
+                for c in cache[name]:
+                    full = c.new_zeros((*c.shape[:2], cache_rows, *c.shape[3:]))
+                    full[:, :, :S] = c
+                    grown.append(full)
+                cache[name] = tuple(grown)
         tok = logits.argmax(-1)
         out = [tok.tolist()]
         ttft = time.perf_counter() - t0
@@ -1046,6 +1111,7 @@ def full_width_train(torch, fa, ssd):
                 "ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd._launch_bwd}
     for fn in counters.values():
         fn.launches = 0
+    fa.flash_attention.mla_launches = 0
     stats = train_main(argv)
     launches = {name: fn.launches for name, fn in counters.items()}
     print(json.dumps({"train": stats, "launches": launches}))
@@ -1054,6 +1120,7 @@ def full_width_train(torch, fa, ssd):
     print(f"launches {launches}, expected {expected} (3 steps)")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
+    _no_mla_launches(fa, launches, "train")
     losses = stats["losses"]
     if not (len(losses) == 3 and all(math.isfinite(x) for x in losses)
             and abs(losses[0] - math.log(cfg.vocab)) < 1.5):
@@ -1100,6 +1167,7 @@ def live_seam(torch, fa, fd, ssd):
     jobs = {}
     for fn in counters.values():
         fn.launches = 0
+    fa.flash_attention.mla_launches = 0
     stats = cluster_main(argv, serve_params=serve_params,
                          on_job=lambda job: jobs.__setitem__(job.jid, job))
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -1148,6 +1216,7 @@ def live_seam(torch, fa, fd, ssd):
           f"{serves} serve batches, {decode_steps} decode steps)")
     if launches != expected or not all(launches.values()):
         raise AssertionError(f"kernel launches {launches} != {expected}")
+    _no_mla_launches(fa, launches, "live")
     # the served tokens are those of the same requests served again outside
     # the cluster, on an engine over the same params (a determinism check)
     engine = ServeEngine(serve_cfg, serve_params, max_seq=MAX_SEQ, device="cuda")
@@ -1188,19 +1257,30 @@ def live_seam(torch, fa, fd, ssd):
 # --------------------------------------------------------- 10. hybrid serve
 def _zeroed_counters(fa, fd, ssd):
     """Set every kernel's launch count to 0; returns a function that reads
-    them (the SSD forward's final-state launches as ssd_scan_final_state)."""
+    them (the SSD forward's final-state launches as ssd_scan_final_state,
+    flash_attention's Dv != D launches as flash_attention_mla)."""
     counters = {"flash_attention": fa.flash_attention, "flash_decode": fd.flash_decode,
                 "ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd._launch_bwd,
                 "flash_attention_bwd": fa._launch_bwd}
     for fn in counters.values():
         fn.launches = 0
     ssd.ssd_scan.final_state_launches = 0
+    fa.flash_attention.mla_launches = 0
 
     def read():
         out = {name: fn.launches for name, fn in counters.items()}
         out["ssd_scan_final_state"] = ssd.ssd_scan.final_state_launches
+        out["flash_attention_mla"] = fa.flash_attention.mla_launches
         return out
     return read
+
+
+def _no_mla_launches(fa, launches: dict, what: str) -> None:
+    """A path that runs no MLA: add flash_attention's Dv != D launches,
+    zeroed with the path's other counts, to `launches`; fail if any."""
+    launches["flash_attention_mla"] = fa.flash_attention.mla_launches
+    if launches["flash_attention_mla"]:
+        raise AssertionError(f"{what}: flash_attention launched its Dv != D instance")
 
 
 def full_width_hybrid_serve(torch, fa, fd, ssd):
@@ -1253,7 +1333,7 @@ def full_width_hybrid_serve(torch, fa, fd, ssd):
     n_groups = cfg.n_layers // cfg.attn_every
     expected = {"flash_attention": n_groups, "flash_decode": n_groups * (HYBRID_NEW - 1),
                 "ssd_scan": cfg.n_layers, "ssd_scan_bwd": 0, "flash_attention_bwd": 0,
-                "ssd_scan_final_state": cfg.n_layers}
+                "ssd_scan_final_state": cfg.n_layers, "flash_attention_mla": 0}
     print(f"launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -1376,7 +1456,7 @@ def launchers_on_card(torch, fa, fd, ssd):
     expected = {"flash_attention": cfg.n_layers * QUICK_STEPS + demo.n_layers * len(served),
                 "flash_decode": demo.n_layers * decode_steps, "ssd_scan": 0,
                 "ssd_scan_bwd": 0, "flash_attention_bwd": cfg.n_layers * QUICK_STEPS,
-                "ssd_scan_final_state": 0}
+                "ssd_scan_final_state": 0, "flash_attention_mla": 0}
     print(f"launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -1649,7 +1729,7 @@ def full_width_moe_serve(torch, fa, fd, ssd):
     cfg = get_config("olmoe_1b_7b")
     expected = {"flash_attention": cfg.n_layers, "flash_decode": cfg.n_layers * (MOE_NEW - 1),
                 "ssd_scan": 0, "ssd_scan_bwd": 0, "flash_attention_bwd": 0,
-                "ssd_scan_final_state": 0}
+                "ssd_scan_final_state": 0, "flash_attention_mla": 0}
     print(f"launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -1724,7 +1804,7 @@ def full_width_moe_train(torch, fa, fd, ssd):
     cfg = get_config("olmoe_1b_7b").with_(n_layers=MOE_TRAIN_LAYERS)
     expected = {k: MOE_TRAIN_STEPS * n
                 for k, n in train_launches(cfg, cfg.train_microbatches).items()}
-    expected.update(flash_decode=0, ssd_scan_final_state=0)
+    expected.update(flash_decode=0, ssd_scan_final_state=0, flash_attention_mla=0)
     print(f"launches {launches}, expected {expected} ({MOE_TRAIN_STEPS} steps)")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -1847,8 +1927,8 @@ def campaigns_on_card(torch, fa, fd, ssd) -> tuple:
 
 # -------------------------------------------------------- 17. xLSTM parity
 def _no_launches(launches: dict, what: str) -> None:
-    """xLSTM has no hand-written kernel (its mLSTM scan and sLSTM loop are
-    plain torch, as the reference's are jnp): fail if one launched."""
+    """xLSTM has no hand-written kernel (the mLSTM scan and the sLSTM loop
+    are plain torch, as the reference's are jnp): fail if one launched."""
     print(f"launches {launches}, expected none")
     if any(launches.values()):
         raise AssertionError(f"{what}: a hand-written kernel launched: {launches}")
@@ -2096,6 +2176,295 @@ def full_width_xlstm_train(torch, fa, fd, ssd):
     return launches
 
 
+# ---------------------------------------------------------- 20. MLA parity
+def mla_layer_cpu_vs_card(torch, p, cfg, seed: int, B: int, S: int) -> dict:
+    """One MLA layer (params p on the CPU) on the CPU and on the card from
+    the same seeded input x (B, S, d): the prefill of S - 1 tokens (out and
+    the latents c_kv, k_rope), the latents in a cache of S rows, then the
+    absorbed decode of token S (out and both leaves after it).  Returns
+    each output's largest gap over the CPU's largest magnitude."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, S, cfg.d_model), generator=gen).to(p["wo"].dtype)
+    pos = torch.arange(S)[None].expand(B, S)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        xd, posd = x.to(dev), pos.to(dev)
+        with torch.no_grad():
+            o, (c, r) = layers.mla_fwd(pd, xd[:, :-1], cfg, positions=posd[:, :-1],
+                                       return_kv=True)
+            cc, cr = (t.new_zeros((B, S, t.shape[-1])) for t in (c, r))
+            cc[:, :-1], cr[:, :-1] = c, r
+            od, _ = layers.mla_fwd(pd, xd[:, -1:], cfg, positions=posd[:, -1:],
+                                   cache=(cc, cr), cache_index=S - 1)
+        out[dev] = [t.cpu() for t in (o, c, r, od, cc, cr)]
+    names = ("prefill_out", "c_kv", "k_rope", "decode_out", "c_kv_after", "k_rope_after")
+    return {n: _rel_err(g, c) for n, g, c in zip(names, out["cuda"], out["cpu"], strict=True)}
+
+
+def mla_bf16_whole_model(torch, cfg, params, toks) -> dict:
+    """The reduced model's bf16 `forward` on the card and on the CPU from
+    the same params (on the CPU) and tokens, each MoE block's top-k expert
+    ids recorded: the logits' largest gap over the CPU's largest magnitude,
+    over every token and over the tokens routed alike in every block, and
+    the tokens whose top-k set differs, block by block."""
+    from repro_torch.models import forward, moe
+
+    orig, out = moe._route, {}
+    for dev, p in (("cpu", params), ("cuda", _to(params, "cuda"))):
+        ids = []
+
+        def record(*a, **kw):
+            r = orig(*a, **kw)
+            ids.append(r[2].view(-1, cfg.moe.top_k).sort(dim=-1).values.cpu())
+            return r
+        moe._route = record
+        try:
+            with torch.no_grad():
+                logits = forward(p, toks.to(dev), cfg)
+        finally:
+            moe._route = orig
+        out[dev] = logits.float().cpu(), ids
+    (cl, cids), (gl, gids) = out["cpu"], out["cuda"]
+    if not bool(torch.isfinite(gl).all()):
+        raise AssertionError("non-finite bf16 logits on the card")
+    flips = [(g != c).any(dim=-1) for g, c in zip(gids, cids, strict=True)]
+    flipped = torch.stack(flips).any(dim=0).view(toks.shape)
+    gap = (gl - cl).abs().amax(dim=-1)                     # (B, S)
+    mag = float(cl.abs().max()) + 1e-6
+    alike = gap[~flipped]
+    return {"max_rel_err": float(gap.max()) / mag,
+            "max_rel_err_routed_alike": float(alike.max()) / mag if alike.numel() else None,
+            "tokens": toks.numel(), "tokens_flipped": int(flipped.sum()),
+            "flipped_by_block": [int(f.sum()) for f in flips]}
+
+
+def _mla_launches(launches: dict, n: int, what: str) -> None:
+    """MLA runs one hand-written kernel: flash_attention's Dv != D instance,
+    once a layer and prefill (its decode is the absorbed einsums).  Fail
+    unless it launched n times and no other kernel launched."""
+    expected = {name: 0 for name in launches}
+    expected.update(flash_attention=n, flash_attention_mla=n)
+    print(f"launches {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"{what}: kernel launches {launches} != {expected}")
+
+
+def mla_parity(torch, fa, fd, ssd):
+    """Reduced deepseek-v2 (MoE with a dense first block, and MLA) in f32
+    (TF32 off), the same seeded params on the card and on the CPU: a
+    MLA_PARITY_PROMPT-token prefill (logits and both latent leaves of both
+    stacks) and 8 greedy decode steps (logits, the leaves after them)
+    within 1e-4, tokens equal.  Then bf16, within 2e-2 of the largest
+    magnitude: every block's MLA of the reduced model, and one MLA layer at
+    deepseek-v2-236b's widths, on the card and on the CPU from the same
+    inputs (`mla_layer_cpu_vs_card`).  bf16 is held layer by layer: a
+    rounding gap that each layer keeps small can flip one token's top-k
+    expert further down the stack, which moves that token's logits by far
+    more than 2e-2, so whole-model bf16 logits measure routing as well as
+    MLA.  The whole model's bf16 gap is printed beside the tokens whose
+    routing flipped (`mla_bf16_whole_model`), and held to 2e-2 when none
+    did.  Every prefill on the card launches flash_attention's Dv != D
+    instance once a layer; nothing else launches."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.models import init_params, layers
+    from repro_torch.models.model import _layer
+
+    cfg = reduced("deepseek_v2_236b")
+    counters = _zeroed_counters(fa, fd, ssd)
+    params = init_params(cfg, seed=0, device="cpu")
+    S = MLA_PARITY_PROMPT
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (2, S)))
+    rows = S + MLA_PARITY_NEW - 1
+    out = {dev: _greedy(torch, p, cfg, toks.to(dev), MLA_PARITY_NEW, rows)
+           for dev, p in (("cpu", params), ("cuda", _to(params, "cuda")))}
+    (cl, cc), csteps, ctoks, _, _, cfinal = out["cpu"]
+    (gl, gc), gsteps, gtoks, _, _, gfinal = out["cuda"]
+    err = {"logits": max(float((g.cpu() - c).abs().max())
+                         for g, c in zip([gl, *gsteps], [cl, *csteps], strict=True))}
+    names = [f"{n}.{leaf}" for n in cfinal for leaf in ("c_kv", "k_rope")]
+    finals = ([t for kv in gfinal.values() for t in kv], [t for kv in cfinal.values() for t in kv])
+    for when, (gs, cs) in (("prefill", (gc, cc)), ("decoded", finals)):
+        for name, g, c in zip(names, gs, cs, strict=True):
+            err[f"{when} {name}"] = float((g.cpu() - c).abs().max())
+    ok = max(err.values()) <= 1e-4 and gtoks == ctoks
+    print(json.dumps({"mla_serve_parity": {"max_abs_err": err, "tokens_equal": gtoks == ctoks,
+                                           "tokens": gtoks[0]}}), flush=True)
+    if not ok:
+        raise AssertionError(f"reduced deepseek-v2 serving differs cuda vs cpu: {err}, "
+                             f"tokens equal {gtoks == ctoks}")
+
+    bad = []
+    bf = cfg.with_(param_dtype="bfloat16", compute_dtype="bfloat16")
+    bparams = init_params(bf, seed=0, device="cpu")
+    cases = [(f"{name}[{i}]", bf, _layer(bparams[name]["attn"], i))
+             for name in ("pre_layers", "layers")
+             for i in range(bparams[name]["attn"]["wo"].shape[0])]
+    full = get_config("deepseek_v2_236b")
+    cases.append(("full width", full, layers.init_mla(torch.Generator().manual_seed(0), full)))
+    for seed, (what, c, p) in enumerate(cases):
+        rel = mla_layer_cpu_vs_card(torch, p, c, seed, 2, S)
+        print(json.dumps({"mla_layer_bf16": {"layer": what, "max_rel_err": rel}}), flush=True)
+        if not max(rel.values()) <= 2e-2:
+            bad.append((what, rel))
+    if bad:
+        raise AssertionError(f"bf16 MLA differs cuda vs cpu by more than 2e-2: {bad}")
+    whole = mla_bf16_whole_model(torch, bf, bparams, toks)
+    print(json.dumps({"mla_model_bf16": whole}), flush=True)
+    if whole["tokens_flipped"] == 0 and not whole["max_rel_err"] <= 2e-2:
+        raise AssertionError(f"bf16 reduced deepseek-v2 differs cuda vs cpu by more than "
+                             f"2e-2 with every token routed alike: {whole}")
+    _mla_launches(counters(), 2 * cfg.n_layers + len(cases), "mla parity")
+
+
+# ----------------------------------------------------------- 21. MLA serve
+def mla_requests(vocab: int):
+    """Phase 21's requests, from numpy's generator (seed 0): MLA_REQUESTS
+    prompts, the first MLA_PROMPT[1] tokens long and the others of a length
+    drawn from MLA_PROMPT, each asking for MLA_NEW tokens."""
+    import numpy as np
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(0)
+    lens = [MLA_PROMPT[1], *(int(n) for n in rng.integers(MLA_PROMPT[0], MLA_PROMPT[1] + 1,
+                                                            MLA_REQUESTS - 1))]
+    return [Request(rid=i, prompt=rng.integers(0, vocab, n, dtype=np.int32),
+                    max_new_tokens=MLA_NEW) for i, n in enumerate(lens)]
+
+
+def mla_decode_step_bytes(cfg, params, batch: int, rows: int) -> dict:
+    """A decode step's least bytes: every weight read once but the token
+    embedding's unused rows (the unembedding is its own table, read
+    whole; the capacity buffer runs every expert), both latent leaves read
+    over `rows` rows, one row of each written."""
+    from repro_torch.models import torch_dtype
+    from repro_torch.training.optimizer import tree_leaves
+
+    weight = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    tok = params["embed"]["tok"]
+    weight -= (tok.shape[0] - batch) * tok.shape[1] * tok.element_size()
+    m = cfg.mla
+    row = cfg.n_layers * batch * (m.kv_lora + m.d_rope) * torch_dtype(cfg.compute_dtype).itemsize
+    return {"weight_bytes": weight, "cache_read_bytes": row * rows, "row_bytes": row,
+            "bytes": weight + row * rows + row}
+
+
+def full_width_mla_serve(torch, fa, fd, ssd):
+    """deepseek-v2-236b at full width cut to MLA_LAYERS layers, bf16,
+    random weights from seed 0, built once, serving `mla_requests` through
+    `ServeEngine` (max_seq MLA_MAX_SEQ).  Counts are zeroed just before the
+    first serve and read just after; a second serve of the same requests on
+    the same params must give the same tokens (two copies of the weights do
+    not fit); one prefill and one decode step run under torch.profiler.
+    Returns the launches."""
+    import gc
+
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill, torch_dtype
+    from repro_torch.serving import ServeEngine
+    from repro_torch.training.optimizer import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    cfg = get_config("deepseek_v2_236b").with_(n_layers=MLA_LAYERS)
+    m, mo = cfg.mla, cfg.moe
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    n_moe = cfg.n_layers - mo.first_dense
+    esize = torch_dtype(cfg.compute_dtype).itemsize
+    model = {"d_model": cfg.d_model, "heads": cfg.n_heads, "kv_lora": m.kv_lora,
+             "q_lora": m.q_lora, "d_nope": m.d_nope, "d_rope": m.d_rope, "d_v": m.d_v,
+             "experts": mo.n_experts, "top_k": mo.top_k, "shared": mo.n_shared,
+             "d_expert": mo.d_expert, "d_first_dense": mo.d_first_dense, "vocab": cfg.vocab,
+             "layers": cfg.n_layers, "moe_layers": n_moe,
+             "params": sum(t.numel() for t in tree_leaves(params)),
+             "param_bytes": nbytes(params), "embed_bytes": nbytes(params["embed"]),
+             "dense_block_bytes": nbytes(params["pre_layers"]),
+             "moe_block_bytes": nbytes(params["layers"]) / n_moe,
+             "allocated_before_params": before, "init_s": init_s,
+             "cache_bytes_per_token_per_layer": (m.kv_lora + m.d_rope) * esize,
+             "gqa_cache_bytes_per_token_per_layer_at_these_heads":
+                 2 * cfg.n_kv * cfg.d_head * esize}
+    print(json.dumps({"mla_model": model}), flush=True)
+    engine = ServeEngine(cfg, params, max_seq=MLA_MAX_SEQ, device="cuda")
+
+    def serve():
+        reqs = mla_requests(cfg.vocab)
+        t0 = time.perf_counter()
+        engine.serve_batch(reqs)
+        torch.cuda.synchronize()
+        return reqs, time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _zeroed_counters(fa, fd, ssd)
+    reqs, seconds = serve()
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = list(engine.step_seconds)
+    outputs = [r.tokens_out for r in reqs]
+    n_tok = sum(len(o) for o in outputs)
+    ttft = max(r.first_token_at - r.submitted_at for r in reqs)
+    B, S = len(reqs), max(len(r.prompt) for r in reqs)
+    stats = {"requests": B, "prompt_lens": [len(r.prompt) for r in reqs], "padded_prompt": S,
+             "max_seq": MLA_MAX_SEQ, "tokens": n_tok, "seconds": seconds,
+             "ttft_s_max": ttft, "tok_per_s": n_tok / seconds,
+             "decode_tok_per_s": B * len(step_s) / sum(step_s),
+             "decode_step_ms_median": 1e3 * sorted(step_s)[len(step_s) // 2],
+             "decode_step_ms_first_last": [1e3 * step_s[0], 1e3 * step_s[-1]],
+             "max_memory_allocated": peak, "phase_peak_bytes": peak - before}
+    print(json.dumps({"mla_serve": stats, "launches": launches,
+                      "first_tokens": [o[:8] for o in outputs]}), flush=True)
+    _mla_launches(launches, cfg.n_layers, "mla serve")
+    if (B, S) != (MLA_REQUESTS, MLA_PROMPT[1]) or len(step_s) != MLA_NEW - 1:
+        raise AssertionError(f"served {B} x {S} in {len(step_s)} decode steps, not "
+                             f"{MLA_REQUESTS} x {MLA_PROMPT[1]} in {MLA_NEW - 1}")
+    if any(len(o) != MLA_NEW or not all(0 <= t < cfg.vocab for t in o) for o in outputs):
+        raise AssertionError(f"a request did not return {MLA_NEW} tokens in the vocab")
+    if not (math.isfinite(stats["tok_per_s"]) and ttft > 0):
+        raise AssertionError(f"bad serve stats {stats}")
+    again = [r.tokens_out for r in serve()[0]]
+    print(f"mla serve deterministic: {again == outputs}")
+    if again != outputs:
+        raise AssertionError("a second serve of the same requests gave other tokens")
+    step = mla_decode_step_bytes(cfg, params, B, MLA_MAX_SEQ)
+    print(json.dumps({"mla_decode_step": {
+        "median_ms": stats["decode_step_ms_median"], **step,
+        "bound_ms": 1e3 * step["bytes"] / HBM_BYTES_PER_S,
+        "formula": "weights but the unused token-embedding rows + both bf16 latent "
+                   f"leaves over {MLA_MAX_SEQ} rows + one row written"}}), flush=True)
+    # where a prefill's and a decode step's time goes
+    toks = torch.zeros((B, S), dtype=torch.long)
+    for i, r in enumerate(reqs):
+        toks[i, S - len(r.prompt):] = torch.from_numpy(r.prompt)
+    toks = toks.cuda()
+    with torch.no_grad():
+        (logits, cache), pre = profile_call(torch, lambda: prefill(params, toks, cfg))
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite prefill logits")
+        cache = {n: tuple(F.pad(c, (0, 0, 0, MLA_MAX_SEQ - S)) for c in kv)
+                 for n, kv in cache.items()}
+        nxt = logits.argmax(-1)[:, None]
+        decode_step(params, cache, nxt, S, cfg)            # warm
+        _, dec = profile_call(torch, lambda: decode_step(params, cache, nxt, S + 1, cfg))
+    print(json.dumps({"mla_profile": {"prefill": pre, "decode_step": dec}}), flush=True)
+    del params, engine, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2199,6 +2568,15 @@ def main(argv=None) -> int:
           "where a step passed 90 s)")
     xlstm_train_launches = full_width_xlstm_train(torch, fa, fd, ssd)
 
+    phase("20. MLA parity (reduced deepseek-v2, f32 cuda vs cpu; bf16 MLA layers, reduced "
+          "and at full width)")
+    mla_parity(torch, fa, fd, ssd)
+
+    phase(f"21. full-width deepseek-v2-236b serve (bf16, depth cut to {MLA_LAYERS} of 60 "
+          f"layers: 60 are about 470 GB; {MLA_REQUESTS} x {MLA_PROMPT[0]}-{MLA_PROMPT[1]} "
+          f"prompt tokens padded to {MLA_PROMPT[1]}, {MLA_NEW} new)")
+    mla_serve_launches = full_width_mla_serve(torch, fa, fd, ssd)
+
     phase("8. kernels")
     main_shape = {
         "flash_attention": ("bfloat16", dict(B=8, S=512, H=32, K=8, D=128)),
@@ -2208,6 +2586,7 @@ def main(argv=None) -> int:
                                                   p=64, n=64, chunk=256)),
         "ssd_scan_bwd": ("bfloat16", dict(b=2, s=2048, h=64, p=64, n=64, chunk=256)),
         "flash_attention_bwd": ("bfloat16", dict(B=2, S=2048, H=32, K=32, D=64)),
+        "flash_attention_mla": ("bfloat16", dict(MLA_ATTN, B=MLA_REQUESTS, S=MLA_PROMPT[1])),
     }
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -2219,10 +2598,13 @@ def main(argv=None) -> int:
         "ssd_scan_bwd": (csrc + "ssd_scan_bwd.cu", "src/repro/kernels/ssd_scan.py:68"),
         "flash_attention_bwd": (csrc + "flash_attention_bwd.cu",
                                 "src/repro/kernels/flash_attention.py:85"),
+        "flash_attention_mla": (csrc + "flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:85"),
     }
     kernels = []
     for name, (dtn, c) in main_shape.items():
-        row = rows[(name, dtn, tuple(sorted(c.items())))]
+        case = "flash_attention" if name == "flash_attention_mla" else name  # phase 3's row
+        row = rows[(case, dtn, tuple(sorted(c.items())))]
         by_path = {"serve": serve_launches.get(name, 0),
                    "train": train_launches_seen.get(name, 0),
                    "live": live_launches.get(name, 0),
@@ -2232,7 +2614,8 @@ def main(argv=None) -> int:
                    "moe_train": moe_train_launches[name],
                    "campaigns": campaign_launches[name],
                    "xlstm_serve": xlstm_serve_launches[name],
-                   "xlstm_train": xlstm_train_launches[name]}
+                   "xlstm_train": xlstm_train_launches[name],
+                   "mla_serve": mla_serve_launches[name]}
         kernels.append({"name": name, "route": "cuda", "source": meta[name][0],
                         "replaces": meta[name][1], "launches": sum(by_path.values()),
                         "launches_by_path": by_path,

@@ -5,6 +5,12 @@
 // softmax, GQA (query head h reads kv head h / (H / K)), and a causal mask
 // aligned to the end (query i sits at key position i + Skv - Sq).
 //
+// Head dims: the query / key head D and the value head Dv are template
+// arguments.  D = Dv in {32, 64, 128}, and the two pairs of multi-head latent
+// attention's prefill (deepseek-v2): D = 192, Dv = 128 (d_nope + d_rope,
+// d_v) and its reduced sibling's D = 48, Dv = 32.  The Pallas kernel assumes
+// Dv = D; with Dv != D only the P V product and the output narrow.
+//
 // What bounds it on the H100: causal attention does about S/2 FLOP per byte
 // of Q, K, V and O in bf16 (D = 128).  At the serving shapes (S = 384..512)
 // that is 150..205 FLOP/byte, just under the 295 FLOP/byte ridge of the
@@ -19,12 +25,12 @@
 //     warpgroups of 64 query rows each; setmaxnreg gives the consumers 240
 //     registers a thread and leaves the producer 24;
 //   * the producer loads a tile's Q, then streams 128-row K/V tiles into a
-//     shared-memory ring (2 stages at D = 128, 3 below; "full" / "empty"
+//     shared-memory ring (2 stages from D = 128, 3 below; "full" / "empty"
 //     mbarriers per stage), and loads the next tile's Q and K/V as soon as
 //     the consumers release them, so copies overlap the arithmetic and one
 //     tile's epilogue; TMA writes each tile with the 128-byte swizzle
-//     (64-byte for D = 32) that the wgmma descriptors read, and zero-fills
-//     rows past S;
+//     (64-byte for a head of 32, 32-byte for 48) that the wgmma descriptors
+//     read, and zero-fills rows past S;
 //   * S = Q K^T is wgmma (m64n128k16) with both operands in shared memory,
 //     K-major; the online softmax runs on the accumulator fragment in
 //     registers (row max and sum over the 4 lanes of a row, exp2 with
@@ -42,8 +48,10 @@
 // callers hold it at 1e-4 of the f32 plain version, which TF32 tensor-core
 // products (10-bit mantissa) cannot meet, and no main path runs f32 at
 // full width.  It widens tiles into shared f32 and multiplies on the FMA
-// pipe: each thread owns a 4 x 4 block of the score tile and a 4 x D/16
+// pipe: each thread owns a 4 x 4 block of the score tile and a 4 x Dv/16
 // block of the accumulator; its limit is the f32 SIMT peak (67 TFLOP/s).
+#include <type_traits>
+
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -54,18 +62,18 @@ constexpr int kBQ = 64;        // query rows per CTA
 constexpr int kBKV = 64;       // key/value rows per inner step
 constexpr int kThreads = 256;  // 16 x 16 threads: ty picks 4 rows, tx 4 columns
 
-template <int D>
+template <int D, int DV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBQ * (D + 1) + kBKV * (D + 1) + kBKV * D + kBQ * (kBKV + 1));
+  return sizeof(float) * (kBQ * (D + 1) + kBKV * (D + 1) + kBKV * DV + kBQ * (kBKV + 1));
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                        int Sq, int Skv, int H, int K, int causal, float scale) {
-  constexpr int QS = D + 1, KS = D + 1, VS = D, PS = kBKV + 1;
-  constexpr int C = D / 16;  // accumulator columns per thread
+  constexpr int QS = D + 1, KS = D + 1, VS = DV, PS = kBKV + 1;
+  constexpr int C = DV / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + kBQ * QS;
@@ -92,12 +100,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int kv_end = Skv;
   if (causal) kv_end = min(Skv, max(0, min(q0 + kBQ, Sq) + shift));
   const T* kb = k + ((size_t)b * Skv * K + kh) * D;
-  const T* vb = v + ((size_t)b * Skv * K + kh) * D;
+  const T* vb = v + ((size_t)b * Skv * K + kh) * DV;
 
   for (int t0 = 0; t0 < kv_end; t0 += kBKV) {
     __syncthreads();  // the previous tile is consumed
     load_rows<T, D, kThreads>(Ks, KS, kb, (size_t)K * D, t0, kBKV, Skv);
-    load_rows<T, D, kThreads>(Vs, VS, vb, (size_t)K * D, t0, kBKV, Skv);
+    load_rows<T, DV, kThreads>(Vs, VS, vb, (size_t)K * DV, t0, kBKV, Skv);
     __syncthreads();
 
     float s[4][4];
@@ -175,17 +183,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // no key gets +inf, so exp(s - lse) is 0 there
     if (lse && tx == 0)
       lse[((size_t)b * H + h) * Sq + qi] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
-    T* orow = o + (((size_t)b * Sq + qi) * H + h) * D;
+    T* orow = o + (((size_t)b * Sq + qi) * H + h) * DV;
 #pragma unroll
     for (int c = 0; c < C; ++c) orow[tx + 16 * c] = from_float<T>(acc[i][c] * inv);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int Sq, int Skv, int H, int K, int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kern = flash_attention_kernel<T, D>;
+  constexpr size_t smem = smem_bytes<D, DV>();
+  auto kern = flash_attention_kernel<T, D, DV>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
@@ -203,13 +211,16 @@ constexpr int kBQ = 128;       // query rows per tile: 64 per consumer warpgroup
 constexpr int kBKV = 128;      // key/value rows per ring stage
 constexpr int kThreads = 384;  // producer warpgroup + 2 consumer warpgroups
 
-template <int D>
+template <int D, int DV>
 struct Smem {  // Q | ring of (K, V) stages, each tile 1024-byte aligned
   using T = sm90::Tile<D>;
-  static constexpr int kStages = D == 128 ? 2 : 3;
-  static constexpr uint32_t kQ = T::bytes(kBQ), kKV = T::bytes(kBKV);
-  static constexpr uint32_t kQSub = T::sub_bytes(kBQ), kKVSub = T::sub_bytes(kBKV);
-  static constexpr size_t kBytes = 1024 + kQ + 2 * kStages * kKV;  // + alignment slack
+  using TV = sm90::Tile<DV>;
+  static constexpr int kStages = D >= 128 ? 2 : 3;
+  static constexpr uint32_t kQ = T::bytes(kBQ), kK = T::bytes(kBKV), kV = TV::bytes(kBKV);
+  static constexpr uint32_t kQSub = T::sub_bytes(kBQ), kKSub = T::sub_bytes(kBKV),
+                            kVSub = TV::sub_bytes(kBKV);
+  static constexpr size_t kBytes = 1024 + kQ + kStages * (kK + kV);  // + alignment slack
+  static_assert(kBytes <= 227 * 1024, "shared memory");
 };
 
 // The tiles of one launch, heaviest causal tiles first: tile t is query
@@ -269,18 +280,18 @@ __device__ __forceinline__ void softmax_tile(float (&s)[N / 2], float (&m)[2], f
 // Persistent: each CTA walks tiles blockIdx.x, blockIdx.x + gridDim.x, ...,
 // so the producer loads the next tile's Q and K/V while the consumers
 // finish this one.
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
          const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
          float* __restrict__ lse, Tiles tiles, int K, float scale) {
   using namespace sm90;
-  using L = Smem<D>;
+  using L = Smem<D, DV>;
   constexpr int kS = L::kStages, kRB = Tile<D>::kRowBytes;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t q_full, q_empty, full[kS], empty[kS];
   uint8_t* Qs = align1024(smem_raw);
-  uint8_t* KV = Qs + L::kQ;  // stage s: K at KV + 2 s kKV, V after it
+  uint8_t* KV = Qs + L::kQ;  // stage s: K at KV + s (kK + kV), V after it
   const int H = tiles.H, Sq = tiles.Sq, Skv = tiles.Skv, causal = tiles.causal;
   const int shift = Skv - Sq;  // query i sits at key position i + shift
   const int tid = threadIdx.x;
@@ -310,10 +321,10 @@ fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUten
         for (int j = 0; j < n_kv; ++j, ++it) {
           const int st = it % kS;
           mbar_wait(&empty[st], ((it / kS) & 1) ^ 1);
-          mbar_arrive_expect_tx(&full[st], 2 * L::kKV);
-          uint8_t* Ks = KV + 2 * st * L::kKV;
-          tma_tile<D>(Ks, L::kKVSub, &tm_k, &full[st], kh, j * kBKV, b);
-          tma_tile<D>(Ks + L::kKV, L::kKVSub, &tm_v, &full[st], kh, j * kBKV, b);
+          mbar_arrive_expect_tx(&full[st], L::kK + L::kV);
+          uint8_t* Ks = KV + st * (L::kK + L::kV);
+          tma_tile<D>(Ks, L::kKSub, &tm_k, &full[st], kh, j * kBKV, b);
+          tma_tile<DV>(Ks + L::kK, L::kVSub, &tm_v, &full[st], kh, j * kBKV, b);
         }
       }
     }
@@ -326,7 +337,8 @@ fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUten
   const int roff = 64 * c + 16 * (lt / 32) + g;  // this thread's rows: q0 + roff (+ 8)
   const float sl2 = scale * kLog2e;
   const uint8_t* Qw = Qs + 64 * c * kRB;
-  auto Kst = [&](int it) { return KV + 2 * (it % kS) * L::kKV; };  // K of stage it; V after it
+  auto Kst = [&](int it) { return KV + (it % kS) * (L::kK + L::kV); };  // K of stage it
+  auto Vst = [&](int it) { return Kst(it) + L::kK; };                      // V of stage it
 
 
   int it = 0, n = 0;
@@ -335,10 +347,10 @@ fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUten
     tiles.at(t, q0, h, b, n_kv);
     const int row0 = q0 + roff, wrow = q0 + 64 * c;
 
-    float acc[D / 2], s[kBKV / 2];
+    float acc[DV / 2], s[kBKV / 2];
     uint32_t p[kBKV / 4];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
     mbar_wait(&q_full, n & 1);
     if (n_kv == 0) {
@@ -349,7 +361,7 @@ fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUten
       // tile 0 issues S_0 alone and the last P V follows the loop.
       mbar_wait(&full[it % kS], (it / kS) & 1);
       wgmma_fence();
-      mma_abt<D, kBKV>(s, Qw, L::kQSub, Kst(it), L::kKVSub);
+      mma_abt<D, kBKV>(s, Qw, L::kQSub, Kst(it), L::kKSub);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
@@ -360,9 +372,9 @@ fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUten
         ++it;
         mbar_wait(&full[it % kS], (it / kS) & 1);
           wgmma_fence();  // p and acc were written outside wgmma
-        mma_abt<D, kBKV>(s, Qw, L::kQSub, Kst(it), L::kKVSub);
+        mma_abt<D, kBKV>(s, Qw, L::kQSub, Kst(it), L::kKSub);
         wgmma_commit();
-        mma_pv<D, kBKV / 16>(acc, p, Kst(it - 1) + L::kKV, L::kKVSub);
+        mma_pv<DV, kBKV / 16>(acc, p, Vst(it - 1), L::kVSub);
         wgmma_commit();
           wgmma_wait<1>();  // S_j is in; P_{j-1} V_{j-1} may still run
         fence_regs(s);
@@ -373,11 +385,11 @@ fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUten
         fence_regs(p);
         mbar_arrive(&empty[(it - 1) % kS]);
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
         pack_a<kBKV>(p, s);
       }
       wgmma_fence();
-      mma_pv<D, kBKV / 16>(acc, p, Kst(it) + L::kKV, L::kKVSub);
+      mma_pv<DV, kBKV / 16>(acc, p, Vst(it), L::kVSub);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -392,9 +404,9 @@ fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUten
       const int qi = row0 + 8 * r;
       if (qi >= Sq) continue;
       const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-      __nv_bfloat16* orow = o + (((size_t)b * Sq + qi) * H + h) * D;
+      __nv_bfloat16* orow = o + (((size_t)b * Sq + qi) * H + h) * DV;
 #pragma unroll
-      for (int jj = 0; jj < D / 8; ++jj)
+      for (int jj = 0; jj < DV / 8; ++jj)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj + 2 * tq) =
             __floats2bfloat162_rn(acc[4 * jj + 2 * r] * inv, acc[4 * jj + 2 * r + 1] * inv);
       // per-row logsumexp of the scaled scores, for the backward; a row with
@@ -405,16 +417,16 @@ fwd_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUten
   }
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int Sq, int Skv, int H, int K, int causal, float scale, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   if (!sm90::make_map<D>(&tm_q, q, B, Sq, H, kBQ) ||
       !sm90::make_map<D>(&tm_k, k, B, Skv, K, kBKV) ||
-      !sm90::make_map<D>(&tm_v, v, B, Skv, K, kBKV))
+      !sm90::make_map<DV>(&tm_v, v, B, Skv, K, kBKV))
     return cudaErrorInvalidValue;
-  constexpr size_t smem = Smem<D>::kBytes;
-  auto kern = fwd_sm90<D>;
+  constexpr size_t smem = Smem<D, DV>::kBytes;
+  auto kern = fwd_sm90<D, DV>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
@@ -431,42 +443,56 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 
 }  // namespace tc
 
-cudaError_t dispatch_d(int D, int dtype, const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int Sq, int Skv, int H, int K, int causal, float scale,
-                       cudaStream_t s) {
-  if (dtype == kFloat32) {
+// The (D, Dv) pairs built: D = Dv in {32, 64, 128}, and MLA's (192, 128)
+// and (48, 32).
+template <typename F>
+cudaError_t dispatch_dims(int D, int Dv, F&& f) {
+  if (D == Dv) {
     switch (D) {
-      case 32: return launch<float, 32>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, s);
-      case 64: return launch<float, 64>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, s);
-      case 128: return launch<float, 128>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, s);
+      case 32: return f(std::integral_constant<int, 32>{}, std::integral_constant<int, 32>{});
+      case 64: return f(std::integral_constant<int, 64>{}, std::integral_constant<int, 64>{});
+      case 128: return f(std::integral_constant<int, 128>{}, std::integral_constant<int, 128>{});
       default: return cudaErrorInvalidValue;
     }
   }
-  if (dtype == kBFloat16) {
-    switch (D) {
-      case 32: return tc::launch<32>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, s);
-      case 64: return tc::launch<64>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, s);
-      case 128: return tc::launch<128>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, s);
-      default: return cudaErrorInvalidValue;
-    }
-  }
+  if (D == 192 && Dv == 128)
+    return f(std::integral_constant<int, 192>{}, std::integral_constant<int, 128>{});
+  if (D == 48 && Dv == 32)
+    return f(std::integral_constant<int, 48>{}, std::integral_constant<int, 32>{});
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dispatch_d(int D, int Dv, int dtype, const void* q, const void* k, const void* v,
+                       void* o, float* lse, int B, int Sq, int Skv, int H, int K, int causal,
+                       float scale, cudaStream_t s) {
+  if (dtype == kFloat32)
+    return dispatch_dims(D, Dv, [&](auto d, auto dv) {
+      return launch<float, decltype(d)::value, decltype(dv)::value>(
+          q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, s);
+    });
+  if (dtype == kBFloat16)
+    return dispatch_dims(D, Dv, [&](auto d, auto dv) {
+      return tc::launch<decltype(d)::value, decltype(dv)::value>(
+          q, k, v, o, lse, B, Sq, Skv, H, K, causal, scale, s);
+    });
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// q: (B, Sq, H, D), k/v: (B, Skv, K, D), o: (B, Sq, H, D), all contiguous and
-// 16-byte aligned, H % K == 0.  lse, if not null, receives the per-row
+// q: (B, Sq, H, D), k: (B, Skv, K, D), v: (B, Skv, K, Dv), o: (B, Sq, H, Dv),
+// all contiguous and 16-byte aligned, H % K == 0, (D, Dv) a pair that
+// `dispatch_dims` builds.  lse, if not null, receives the per-row
 // logsumexp of the scaled scores, (B, H, Sq) float32, for the backward.
 // Launches on `stream`, allocates nothing, and returns the cudaError_t of
 // the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int B, int Sq, int Skv, int H, int K, int D,
-                                   int causal, float scale, int dtype, void* stream) {
+                                   int Dv, int causal, float scale, int dtype, void* stream) {
   using namespace repro_torch;
   if (B <= 0 || Sq <= 0 || H <= 0 || K <= 0 || H % K != 0 || Skv < 0)
     return cudaErrorInvalidValue;
-  return dispatch_d(D, dtype, q, k, v, o, static_cast<float*>(lse), B, Sq, Skv, H, K, causal,
-                    scale, static_cast<cudaStream_t>(stream));
+  return dispatch_d(D, Dv, dtype, q, k, v, o, static_cast<float*>(lse), B, Sq, Skv, H, K,
+                    causal, scale, static_cast<cudaStream_t>(stream));
 }

@@ -127,9 +127,12 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 }
 
 // ------------------------------------------------------- matrix descriptors
-// Swizzle of a tile whose rows are `row_bytes` long (128 or 64): the layout
-// code of the wgmma descriptor (1 = 128-byte, 2 = 64-byte swizzle).
-__host__ __device__ constexpr int swizzle_code(int row_bytes) { return row_bytes == 128 ? 1 : 2; }
+// Swizzle of a tile whose rows are `row_bytes` long (128, 64 or 32): the
+// layout code of the wgmma descriptor (1 = 128-byte, 2 = 64-byte, 3 =
+// 32-byte swizzle).
+__host__ __device__ constexpr int swizzle_code(int row_bytes) {
+  return row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : 3;
+}
 
 // Descriptor of a bf16 tile in shared memory written by TMA with the swizzle
 // of its `row_bytes`-long rows, its base aligned to 1024 bytes.  In either
@@ -273,14 +276,16 @@ __device__ __forceinline__ float (&acc_slice(float (&d)[N], int i))[W / 2] {
 
 // ----------------------------------------------------------- bf16 tile shapes
 // A (rows x D) bf16 tile of a (B, S, heads, D) tensor as TMA lays it down:
-// one sub-tile per 64 columns (128-byte rows, 128-byte swizzle), or a single
-// 64-byte-row tile with the 64-byte swizzle when D = 32.
+// one sub-tile per 64 columns (128-byte rows, 128-byte swizzle) when D is a
+// multiple of 64, a single 64-byte-row tile with the 64-byte swizzle when
+// D = 32, and one sub-tile per 16 columns (32-byte rows, 32-byte swizzle)
+// when D = 48 (reduced MLA's query / key head).
 template <int D>
 struct Tile {
-  static constexpr int kCols = D < 64 ? D : 64;    // columns of one sub-tile
-  static constexpr int kRowBytes = 2 * kCols;      // 128 or 64
+  static constexpr int kCols = D % 64 == 0 ? 64 : D == 32 ? 32 : 16;  // columns of a sub-tile
+  static constexpr int kRowBytes = 2 * kCols;      // 128, 64 or 32
   static constexpr int kSubs = D / kCols;          // sub-tiles side by side
-  static_assert(D == 32 || D == 64 || D == 128, "head dim");
+  static_assert(D == 32 || D == 48 || D == 64 || D == 128 || D == 192, "head dim");
   static constexpr uint32_t sub_bytes(int rows) { return rows * kRowBytes; }
   static constexpr uint32_t bytes(int rows) { return rows * D * 2; }
 };
@@ -316,6 +321,7 @@ template <int D, int KS>
 __device__ __forceinline__ void mma_pv(float (&o)[D / 2], const uint32_t (&p)[4 * KS],
                                        const void* v, uint32_t v_sub) {
   using T = Tile<D>;
+  static_assert(D == 32 || D % 64 == 0, "an n32 product, or n64 products side by side");
   const uint64_t dv = make_desc(v, T::kRowBytes);
 #pragma unroll
   for (int k = 0; k < KS; ++k) {
@@ -375,7 +381,9 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            T::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+            : T::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                 : CU_TENSOR_MAP_SWIZZLE_32B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }

@@ -19,9 +19,10 @@ The routing rule, decided by shape before any launch:
   * a CPU tensor takes the kernels' plain versions (each wrapper does so);
   * a CUDA tensor launches the kernel of its dispatch point.  A shape that
     kernel's `supports` refuses (head dims other than 32, 64 and 128 for
-    the attention kernels; n or p over 64, a chunk over 1024 or s not a
-    multiple of it for the SSD scan) raises `ValueError` before any
-    launch: no call on the card gives way to a plain version.
+    the attention kernels, but for flash_attention's forward the MLA pairs
+    (D, Dv) = (192, 128) and (48, 32); n or p over 64, a chunk over 1024
+    or s not a multiple of it for the SSD scan) raises `ValueError` before
+    any launch: no call on the card gives way to a plain version.
 
 Everything else (non-causal and cross attention, Sq != Skv, the one-token
 SSD recurrence `ssd_step` of hybrid decode, and the xLSTM's chunked mLSTM
@@ -58,7 +59,7 @@ def attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
     Sq, D = q.shape[1], q.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
 
-    if kv_valid_len is None and causal and Sq == k.shape[1] and v.shape[-1] == D:
+    if kv_valid_len is None and causal and Sq == k.shape[1]:
         return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                   causal=True, scale=scale)
 

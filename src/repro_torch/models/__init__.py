@@ -1,5 +1,5 @@
-"""Model substrate: configs, layers, Mamba-2, xLSTM, MoE, and the dense,
-MoE, xLSTM and hybrid LM assembly."""
+"""Model substrate: configs, layers (GQA and MLA attention), Mamba-2,
+xLSTM, MoE, and the dense, MoE, xLSTM and hybrid LM assembly."""
 from .config import (SHAPES, SHAPES_BY_NAME, MLAConfig, ModelConfig,
                      MoEConfig, ShapeSpec, SSMConfig, XLSTMConfig,
                      applicable_shapes, torch_dtype)

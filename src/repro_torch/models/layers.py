@@ -4,18 +4,19 @@ The port's counterpart of `repro.models.layers`, with the same parameter
 dictionaries and layouts (`wq` is (d, H, Dh), `wo` is (H, Dh, d)), so JAX
 params load with no transposes.  `init_*` builds a param dict from a seeded
 `torch.Generator`; `*_fwd` applies it.  `lead` prepends stacking dims, e.g.
-(L,) for the model's per-layer stacks.  MLA and cross-attention come with
-their slices.
+(L,) for the model's per-layer stacks.  Cross-attention comes with its
+slice.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from .config import ModelConfig, torch_dtype
+from .config import SLICE_ELEMS, ModelConfig, torch_dtype
 
 Params = Dict[str, torch.Tensor]
 
@@ -23,10 +24,22 @@ Params = Dict[str, torch.Tensor]
 def _init(gen: Optional[torch.Generator], shape, scale: float,
           dtype: torch.dtype) -> torch.Tensor:
     """Scaled normal init on gen's device; gen None gives shapes only, on
-    the meta device."""
-    x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device if gen is not None else "meta")
-    return (x * scale).to(dtype)
+    the meta device.  The leaf is drawn in f32 and scaled in place a block
+    of leading-axis slices at a time, each block of at most SLICE_ELEMS
+    elements (at least one slice), straight into `dtype`: so at most one
+    block's f32 copy lives (drawn whole, an f32 copy of 7 layers of
+    deepseek-v2's w1, 8.81e9 elements, could not sit beside a full-width
+    model's weights).  A leaf of SLICE_ELEMS or fewer is one block."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    rows = max(1, SLICE_ELEMS // max(1, math.prod(shape[1:])))
+    for i in range(0, shape[0], rows):
+        x = torch.randn((min(rows, shape[0] - i), *shape[1:]), generator=gen,
+                        dtype=torch.float32, device=gen.device)
+        out[i:i + rows] = x.mul_(scale)
+        del x  # before the next block is drawn
+    return out
 
 
 # ---------------------------------------------------------------------- norms
@@ -137,6 +150,90 @@ def gqa_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         new_cache = (ck, cv)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(ct))
     return out, new_cache
+
+
+# -------------------------------------------------------------- MLA attention
+def init_mla(gen: torch.Generator, cfg: ModelConfig, lead=()) -> Params:
+    """Multi-head latent attention's projections, in the reference's draw
+    order: wq_a (d, q_lora), wq_b (q_lora, H, d_nope + d_rope), wkv_a (d,
+    kv_lora), wk_rope (d, d_rope), wkv_b (kv_lora, H, d_nope + d_v), wo
+    (H, d_v, d)."""
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    dt = torch_dtype(cfg.param_dtype)
+    return {
+        "wq_a": _init(gen, (*lead, d, m.q_lora), d ** -0.5, dt),
+        "wq_b": _init(gen, (*lead, m.q_lora, H, m.d_nope + m.d_rope),
+                      m.q_lora ** -0.5, dt),
+        "wkv_a": _init(gen, (*lead, d, m.kv_lora), d ** -0.5, dt),
+        "wk_rope": _init(gen, (*lead, d, m.d_rope), d ** -0.5, dt),
+        "wkv_b": _init(gen, (*lead, m.kv_lora, H, m.d_nope + m.d_v),
+                       m.kv_lora ** -0.5, dt),
+        "wo": _init(gen, (*lead, H, m.d_v, d), (H * m.d_v) ** -0.5, dt),
+    }
+
+
+def mla_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+            positions: torch.Tensor,
+            cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+            cache_index: Optional[int] = None,
+            causal: bool = True, return_kv: bool = False):
+    """Multi-head latent attention (DeepSeek-V2).  Modes:
+       * train/prefill: cache is None; the direct form, k = [c_kv @ wkv_b's
+         nope half, k_rope on every head], v from wkv_b's other half, through
+         `kops.attention` (flash_attention's Dv != D instance on the card,
+         its plain version on the CPU); with
+         return_kv the latents (c_kv (B, S, kv_lora), k_rope (B, S, d_rope))
+         come back as the cache content.
+       * decode: cache=(c_kv, k_rope); the new rows are written in place at
+         min(cache_index, S - Sq) of each leaf, as JAX's dynamic_update_slice
+         clamps, then the reference's absorbed form in f32: wkv_b folded into
+         the query and the output, scores over the whole cache masked by
+         t <= cache_index + i.
+    RoPE takes no `rope_fraction` here, as in the reference.  Returns (out,
+    cache or None).
+    """
+    m = cfg.mla
+    ct = torch_dtype(cfg.compute_dtype)
+    q = torch.einsum("bsd,dq->bsq", x, p["wq_a"].to(ct))
+    q = torch.einsum("bsq,qhk->bshk", q, p["wq_b"].to(ct))
+    q_nope, q_rope = q[..., :m.d_nope], q[..., m.d_nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = torch.einsum("bsd,dc->bsc", x, p["wkv_a"].to(ct))
+    k_rope = torch.einsum("bsd,dr->bsr", x, p["wk_rope"].to(ct))
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    scale = 1.0 / math.sqrt(m.d_nope + m.d_rope)
+
+    if cache is None:
+        kv = torch.einsum("bsc,chk->bshk", c_kv, p["wkv_b"].to(ct))
+        k_nope, v = kv[..., :m.d_nope], kv[..., m.d_nope:]
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_nope.shape[:3], m.d_rope)],
+                      dim=-1)
+        qf = torch.cat([q_nope, q_rope], dim=-1)
+        out = kops.attention(qf, k, v, causal=causal, scale=scale,
+                             block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv)
+        out = torch.einsum("bshv,hvd->bsd", out, p["wo"].to(ct))
+        return out, ((c_kv, k_rope) if return_kv else None)
+
+    # ---- decode: absorbed attention in the latent space, f32 -------------
+    cc, cr = cache
+    Sq = x.shape[1]
+    for leaf, new in ((cc, c_kv), (cr, k_rope)):
+        start = min(cache_index, leaf.shape[1] - Sq)
+        leaf[:, start:start + Sq] = new
+    f32 = torch.float32
+    wb = p["wkv_b"].to(f32)
+    wb_k, wb_v = wb[..., :m.d_nope], wb[..., m.d_nope:]     # (c, H, d_nope / d_v)
+    q_abs = torch.einsum("bshk,chk->bshc", q_nope.to(f32), wb_k)
+    scores = (torch.einsum("bshc,btc->bhst", q_abs, cc.to(f32))
+              + torch.einsum("bshr,btr->bhst", q_rope.to(f32), cr.to(f32))) * scale
+    t = torch.arange(cc.shape[1], device=x.device)
+    qpos = cache_index + torch.arange(Sq, device=x.device)
+    scores = scores.masked_fill(~(t[None, :] <= qpos[:, None]), float("-inf"))
+    attn = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhst,btc->bshc", attn, cc.to(f32))
+    out = torch.einsum("bshc,chv->bshv", ctx, wb_v).to(ct)
+    out = torch.einsum("bshv,hvd->bsd", out, p["wo"].to(ct))
+    return out, (cc, cr)
 
 
 # ---------------------------------------------------------------- dense FFN

@@ -7,6 +7,8 @@ The port's counterpart of `repro.models.model` for four families:
   moe    : the same blocks with a routed-expert FFN (`models/moe.py`, one
            device) in place of SwiGLU, after `moe.first_dense` dense blocks
            (`pre_layers`); each MoE block adds its load-balance aux loss.
+           With `cfg.mla` (deepseek-v2) every block's attention is
+           multi-head latent attention (`layers.mla_fwd`) in place of GQA.
   ssm    : xLSTM, groups of one sLSTM block and `slstm_every - 1` mLSTM
            blocks (`models/ssm.py`); trained, prefilled and decoded.
   hybrid : a Mamba-2 stack with one *shared-weight* GQA+SwiGLU block
@@ -17,7 +19,8 @@ Per-layer params are stacked on axis 0 under the reference's keys (xLSTM:
 sLSTM (G, ...) and mLSTM (G, slstm_every - 1, ...) over its G groups), and a
 Python loop over layers takes the place of `lax.scan`.  The dense and MoE
 cache is {"layers": (k, v)}, each (L, B, S, K, Dh), plus {"pre_layers":
-(k, v)} for the first dense blocks; the hybrid cache is the reference's
+(k, v)} for the first dense blocks (MLA: the latents (c_kv, k_rope), (L,
+B, S, kv_lora) and (L, B, S, d_rope)); the hybrid cache is the reference's
 {"mamba": MambaState of (L, ...) stacks, "attn": (k, v)}, each
 (L // attn_every, B, S, K, Dh), one per application of the shared block;
 the xLSTM cache is {"slstm": SLSTMState of (G, ...) stacks, "mlstm":
@@ -37,23 +40,19 @@ from torch.utils.checkpoint import checkpoint
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig, torch_dtype
-from .layers import (embed, gqa_fwd, init_embedding, init_gqa, init_rmsnorm,
-                     init_swiglu, rmsnorm, swiglu_fwd, unembed)
+from .layers import (embed, gqa_fwd, init_embedding, init_gqa, init_mla,
+                     init_rmsnorm, init_swiglu, mla_fwd, rmsnorm, swiglu_fwd,
+                     unembed)
 
 Params = Dict[str, Any]
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise unless cfg is a dense or MoE GQA model, an xLSTM or a hybrid
-    Mamba-2 one (MLA first: deepseek-v2 is MoE and MLA)."""
-    if cfg.mla:
-        item = "MLA"
-    elif cfg.family in ("vlm", "audio"):
-        item = "VLM and audio"
-    else:
-        return
-    raise NotImplementedError(f"{cfg.name} ({cfg.family}) is not ported yet: "
-                              f"ROADMAP queue 1, {item}")
+    """Raise unless cfg is a dense or MoE model (GQA or MLA), an xLSTM or a
+    hybrid Mamba-2 one."""
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}) is not ported yet: "
+                                  "ROADMAP queue 1, VLM and audio")
 
 
 def _remat(fn, cfg: ModelConfig):
@@ -81,10 +80,12 @@ def _n_layers(stack: Params) -> int:
 # ============================================================== block
 def _block_fwd(p: Params, x, cfg: ModelConfig, *, positions, cache=None,
                cache_index=None, causal=True, return_kv=False):
-    """One block: GQA attention, then SwiGLU or, in a block with "moe"
-    params, the routed experts.  Returns (x, cache or None, aux): aux is
-    the MoE block's f32 load-balance loss, 0.0 for a dense block."""
-    h, new_cache = gqa_fwd(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
+    """One block: GQA attention (MLA with cfg.mla), then SwiGLU or, in a
+    block with "moe" params, the routed experts.  Returns (x, cache or
+    None, aux): aux is the MoE block's f32 load-balance loss, 0.0 for a
+    dense block."""
+    attn_fn = mla_fwd if cfg.mla else gqa_fwd
+    h, new_cache = attn_fn(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
                            positions=positions, cache=cache,
                            cache_index=cache_index, causal=causal,
                            return_kv=return_kv)
@@ -146,7 +147,7 @@ def _init_block(gen, cfg: ModelConfig, device, lead=(), moe_layer=False) -> Para
     p = {
         "ln1": init_rmsnorm(d, dt, device, lead=lead),
         "ln2": init_rmsnorm(d, dt, device, lead=lead),
-        "attn": init_gqa(gen, cfg, lead=lead),
+        "attn": init_mla(gen, cfg, lead=lead) if cfg.mla else init_gqa(gen, cfg, lead=lead),
     }
     if moe_layer:
         p["moe"] = moe_mod.init_moe(gen, cfg, lead=lead)
@@ -291,8 +292,9 @@ def loss_fn(params: Params, batch: TrainBatch, cfg: ModelConfig,
 # ======================================================== caches + decode step
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     """Zero-filled cache: dense and MoE {"layers": (k, v)}, each (L, B,
-    max_seq, K, Dh), and {"pre_layers": (k, v)} of the first dense blocks
-    when the model has them; hybrid {"mamba": MambaState stacked over the
+    max_seq, K, Dh) (MLA: (c_kv, k_rope), (L, B, max_seq, kv_lora) and (L,
+    B, max_seq, d_rope)), and {"pre_layers": (k, v)} of the first dense
+    blocks when the model has them; hybrid {"mamba": MambaState stacked over the
     L layers, "attn": (k, v)}, each (L // attn_every, B, max_seq, K, Dh);
     xLSTM {"slstm": SLSTMState stacked over the G groups, "mlstm":
     MLSTMState stacked (G, slstm_every - 1)}, zero but the stabilizers
@@ -301,9 +303,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     ct = torch_dtype(cfg.compute_dtype)
 
     def kv(n):
-        shape = (n, batch, max_seq, cfg.n_kv, cfg.d_head)
-        return (torch.zeros(shape, dtype=ct, device=device),
-                torch.zeros(shape, dtype=ct, device=device))
+        if cfg.mla:
+            shapes = [(n, batch, max_seq, cfg.mla.kv_lora), (n, batch, max_seq, cfg.mla.d_rope)]
+        else:
+            shapes = [(n, batch, max_seq, cfg.n_kv, cfg.d_head)] * 2
+        return tuple(torch.zeros(s, dtype=ct, device=device) for s in shapes)
 
     if cfg.family == "hybrid":
         st = ssm_mod.init_mamba_state(cfg, batch, device)

@@ -11,7 +11,11 @@ long when the prompt length S is the largest axis of its (L, B, S, K, Dh)
 prefill cache, and stays S long otherwise.  Then every decode step writes
 its k/v into the last row (`models.layers.gqa_fwd`, as JAX's
 `dynamic_update_slice` clamps), so short prompts give the reference's
-tokens too.
+tokens too.  An MLA model's latents (L, B, S, kv_lora) and (L, B, S,
+d_rope) follow the same rule: under kv_lora prompt tokens only k_rope
+grows, and the first decode step raises on score tensors of S and max_seq
+columns, as the reference's does (a batch must be padded to at least
+kv_lora tokens).
 
 As in the reference, pads are token 0 and prefill and decode attend to them
 (the prompt is not masked), so the port's tokens equal the reference's.

@@ -15,13 +15,15 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from ..models.config import SLICE_ELEMS
+
 Tree = Dict[str, Any]
 
 # `update` holds about five f32 temporaries of the leaf it updates; a leaf
 # larger than this (an MoE model's stacked experts: 8 layers of olmoe's w1
 # are 1.07e9 elements, 4.3 GB in f32) is updated one slice of its leading
 # (layer) axis at a time, the same elementwise arithmetic
-UPDATE_SLICE_ELEMS = 1 << 27
+UPDATE_SLICE_ELEMS = SLICE_ELEMS
 
 
 def tree_map(fn, tree: Tree, *rest: Tree) -> Tree:

@@ -50,27 +50,34 @@ def _err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-@pytest.mark.parametrize("B,Sq,Skv,H,K,D", [
-    (1, 128, 128, 4, 4, 32),    # MHA
-    (2, 256, 256, 8, 2, 64),    # GQA 4:1
-    (1, 256, 256, 4, 1, 64),    # MQA
-    (1, 512, 512, 2, 2, 128),
-    (1, 192, 192, 2, 1, 32),    # ragged: not a multiple of 128
-    (2, 100, 100, 4, 2, 128),   # ragged tail tile
-    (1, 64, 200, 4, 2, 64),     # Sq < Skv, end-aligned
+@pytest.mark.parametrize("B,Sq,Skv,H,K,D,Dv", [
+    (1, 128, 128, 4, 4, 32, 32),    # MHA
+    (2, 256, 256, 8, 2, 64, 64),    # GQA 4:1
+    (1, 256, 256, 4, 1, 64, 64),    # MQA
+    (1, 512, 512, 2, 2, 128, 128),
+    (1, 192, 192, 2, 1, 32, 32),    # ragged: not a multiple of 128
+    (2, 100, 100, 4, 2, 128, 128),  # ragged tail tile
+    (1, 64, 200, 4, 2, 64, 64),     # Sq < Skv, end-aligned
+    # Dv != D (MLA's prefill), also counted in `mla_launches`
+    (2, 64, 64, 4, 4, 48, 32),        # reduced deepseek-v2's prefill
+    (1, 200, 200, 16, 16, 192, 128),  # full widths, ragged tail tile
+    (2, 256, 256, 8, 2, 192, 128),    # GQA
+    (1, 64, 200, 4, 4, 192, 128),     # Sq < Skv, end-aligned
+    (2, 100, 100, 4, 2, 48, 32),      # ragged
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_attention_kernel_vs_plain(cuda, B, Sq, Skv, H, K, D, dtype, causal):
+def test_flash_attention_kernel_vs_plain(cuda, B, Sq, Skv, H, K, D, Dv, dtype, causal):
     rng = np.random.default_rng(0)
     q = _rnd(rng, (B, Sq, H, D), dtype, cuda)
-    k, v = _rnd(rng, (B, Skv, K, D), dtype, cuda), _rnd(rng, (B, Skv, K, D), dtype, cuda)
-    n0 = fa.flash_attention.launches
+    k, v = _rnd(rng, (B, Skv, K, D), dtype, cuda), _rnd(rng, (B, Skv, K, Dv), dtype, cuda)
+    n0, m0 = fa.flash_attention.launches, fa.flash_attention.mla_launches
     o = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == n0 + 1
+    assert fa.flash_attention.mla_launches == m0 + (Dv != D)
     ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
-    assert o.dtype == dtype and o.shape == q.shape
+    assert o.dtype == dtype and o.shape == (B, Sq, H, Dv)
     assert _err(o, ref) < TOL[dtype]
 
 
@@ -789,3 +796,72 @@ def test_mlstm_scan_at_the_models_head_dim_on_the_card(cuda, s):
     assert _rel(y, y_naive) <= 1e-4
     for g, c in zip((y, *state), (y_cpu, *state_cpu), strict=True):
         assert g.dtype == torch.float32 and _rel(g.cpu(), c) <= 1e-4
+
+
+def test_mla_reduced_serving_on_the_card(cuda):
+    """Reduced deepseek-v2 (MoE with a dense first block, and MLA) in f32 on
+    the card against the same seeded params on the CPU: a 64-token prefill's
+    logits and both latent leaves of both stacks within 1e-4, the leaves
+    grown by 8 rows, 8 greedy decode steps with logits within 1e-4 and equal
+    tokens, the leaves after them within 1e-4.  The prefill launches
+    flash_attention's Dv != D instance once a layer (4 layers); the decode,
+    the absorbed einsums, launches no kernel."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = reduced("deepseek_v2_236b")
+    params = init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab, (2, 64)))
+    out = {}
+    n0, m0 = _launch_counts(), fa.flash_attention.mla_launches
+    for dev, p in (("cpu", params), ("cuda", _to(params, "cuda"))):
+        logits, cache = prefill(p, toks.to(dev), cfg)
+        pre = (logits.cpu(), [t.cpu().clone() for kv in cache.values() for t in kv])
+        cache = {n: tuple(F.pad(c, (0, 0, 0, 8)) for c in kv) for n, kv in cache.items()}
+        tok, steps = logits.argmax(-1), []
+        for i in range(8):
+            logits, cache = decode_step(p, cache, tok[:, None], 64 + i, cfg)
+            tok = logits.argmax(-1)
+            steps.append((logits.cpu(), tok.tolist()))
+        out[dev] = pre, steps, [t.cpu() for kv in cache.values() for t in kv]
+    torch.cuda.synchronize()
+    (cl, cc), cs, cfinal = out["cpu"]
+    (gl, gc), gs, gfinal = out["cuda"]
+    assert _err(gl, cl) < 1e-4
+    for g, c in zip(gc + gfinal, cc + cfinal, strict=True):
+        torch.testing.assert_close(g, c, atol=1e-4, rtol=1e-4)
+    for (g, gt), (c, ct) in zip(gs, cs, strict=True):
+        assert gt == ct and _err(g, c) < 1e-4
+    assert tuple(a - b for a, b in zip(_launch_counts(), n0)) == (4, 0, 0, 0, 0)
+    assert fa.flash_attention.mla_launches - m0 == 4
+
+
+@pytest.mark.parametrize("width", ["reduced", "full"])
+def test_mla_layer_bf16_on_the_card(cuda, width):
+    """One bf16 MLA layer on the card and on the CPU from the same inputs
+    (chip_smoke phase 20's `mla_layer_cpu_vs_card`): the prefill's out and
+    latents, an absorbed decode step and the leaves after it, each within
+    2e-2 of the largest magnitude, at reduced deepseek-v2's widths and at
+    deepseek-v2-236b's.  The prefill launches flash_attention's Dv != D
+    instance once, the decode no kernel."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.models import layers
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg = get_config("deepseek_v2_236b") if width == "full" else reduced("deepseek_v2_236b")
+    cfg = cfg.with_(param_dtype="bfloat16", compute_dtype="bfloat16")
+    p = layers.init_mla(torch.Generator().manual_seed(1), cfg)
+    n0, m0 = _launch_counts(), fa.flash_attention.mla_launches
+    rel = cs.mla_layer_cpu_vs_card(torch, p, cfg, 2, 2, 64)
+    assert max(rel.values()) <= 2e-2, rel
+    assert tuple(a - b for a, b in zip(_launch_counts(), n0)) == (1, 0, 0, 0, 0)
+    assert fa.flash_attention.mla_launches - m0 == 1

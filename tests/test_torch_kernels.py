@@ -223,15 +223,44 @@ def _shape_refused(check, *args) -> bool:
     return False
 
 
-@pytest.mark.parametrize("D", [16, 32, 48, 64, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 128, 192, 256])
 @pytest.mark.parametrize("H,K,Bk,Dv", [(4, 4, 2, None), (4, 2, 2, None), (4, 3, 2, None),
-                                       (6, 4, 2, None), (4, 2, 1, None), (4, 2, 2, 32)])
+                                       (6, 4, 2, None), (4, 2, 1, None), (4, 2, 2, 32),
+                                       (4, 4, 2, 128)])
 def test_flash_attention_supports_is_its_check(D, H, K, Bk, Dv):
+    """The forward takes D == Dv in (32, 64, 128) and MLA's (192, 128) and
+    (48, 32); the backward D == Dv alone."""
     q, k = torch.zeros((2, 8, H, D)), torch.zeros((Bk, 8, K, D))
     v = torch.zeros((Bk, 8, K, Dv or D))
     ok = fa.supports(q, k, v)
     assert ok == (not _shape_refused(fa._check, "flash_attention", q, k, v))
-    assert ok == (D in (32, 64, 128) and H % K == 0 and Bk == 2 and (Dv or D) == D)
+    pairs = {(32, 32), (64, 64), (128, 128), (192, 128), (48, 32)}
+    assert ok == ((D, Dv or D) in pairs and H % K == 0 and Bk == 2)
+    ok_bwd = fa.supports(q, k, v, backward=True)
+    assert ok_bwd == (not _shape_refused(fa._check, "flash_attention_bwd", q, k, v, True))
+    assert ok_bwd == (ok and (Dv or D) == D)
+
+
+def test_flash_attention_with_dv_not_d_routes_to_the_kernel_and_has_no_backward(monkeypatch):
+    """MLA's prefill (Dv != D) goes through `flash_attention`: on a CPU
+    tensor its plain version, equal to naive_attention; off the CPU a call
+    that needs a gradient raises before any launch (no backward instance
+    for Dv != D)."""
+    rng = np.random.default_rng(7)
+    q, k = (torch.from_numpy(rng.standard_normal((2, 24, 4, 48)).astype(np.float32))
+            for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal((2, 24, 4, 32)).astype(np.float32))
+    calls, orig = [], fa.flash_attention_plain
+    monkeypatch.setattr(fa, "flash_attention_plain",
+                        lambda *a, **kw: calls.append(1) or orig(*a, **kw))
+    o = ops.attention(q, k, v, causal=True, scale=0.2)
+    assert calls == [1] and o.shape == (2, 24, 4, 32)
+    assert _err(ref.naive_attention(q, k, v, causal=True, scale=0.2).numpy(), o) == 0
+    qm, km, vm = (t.to("meta").requires_grad_(True) for t in (q, k, v))
+    before = (fa.flash_attention.launches, fa.flash_attention.mla_launches)
+    with pytest.raises(ValueError, match="flash_attention_bwd: unsupported shapes"):
+        fa.flash_attention(qm, km, vm, causal=True)
+    assert (fa.flash_attention.launches, fa.flash_attention.mla_launches) == before
 
 
 @pytest.mark.parametrize("D,Dv", [(16, 16), (32, 32), (64, 128), (128, 32), (48, 64),

@@ -5,6 +5,7 @@ numpy from a seed, and every comparison is in float32 on the CPU (the
 kernels' plain versions) at atol/rtol 1e-4.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -251,9 +252,10 @@ def test_unported_families_raise(arch):
             ServeEngine(cfg, params, device="cpu")
         if cfg.family == "hybrid":
             return
-    if arch in ("olmoe_1b_7b", "xlstm_350m"):
+    if arch in ("olmoe_1b_7b", "deepseek_v2_236b", "xlstm_350m"):
         # ported: the reference's key tree and shapes (xLSTM: its nested
-        # (G, n_m, ...) mLSTM stacks), and the engine takes olmoe
+        # (G, n_m, ...) mLSTM stacks; deepseek-v2: MLA's projections), and
+        # the engine takes the MoE models
         params = init_params(cfg, device="cpu")
         jshapes = jax.eval_shape(lambda k: jmodel.init_params(k, jreduced(arch)),
                                  jax.random.PRNGKey(0))
@@ -264,7 +266,35 @@ def test_unported_families_raise(arch):
         if cfg.family == "moe":
             ServeEngine(cfg, params, device="cpu")
         return
-    # deepseek-v2 is MoE and MLA: it waits for MLA, and says so
-    item = "MLA" if arch == "deepseek_v2_236b" else "ROADMAP queue 1"
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, VLM and audio"):
         init_params(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("shape", [(5, 3, 4), (7, 6)])
+def test_init_draws_a_large_leaf_slice_by_slice(monkeypatch, shape):
+    """A leaf over SLICE_ELEMS (lowered here to 20 elements) is drawn a
+    block of leading-axis slices at a time: one layer of a stack of 12
+    elements a layer, two rows of a (7, 6) leaf.  At the real threshold the
+    leaf is one block, bit for bit the whole draw scaled and cast once.
+    The sliced draw has that draw's shape and dtype, the same seed gives
+    the same values, another seed other values, and the scale is applied
+    (the std of N(0, 1) * 0.5)."""
+    def draw(seed, dtype=torch.bfloat16):
+        gen = torch.Generator().manual_seed(seed)
+        return layers._init(gen, shape, 0.5, dtype)
+
+    single = draw(0)
+    whole = torch.randn(shape, generator=torch.Generator().manual_seed(0)) * 0.5
+    assert torch.equal(single, whole.to(torch.bfloat16))
+    monkeypatch.setattr(layers, "SLICE_ELEMS", 20)
+    sliced = draw(0)
+    assert sliced.shape == single.shape == shape and sliced.dtype == torch.bfloat16
+    assert torch.equal(sliced, draw(0)) and not torch.equal(sliced, draw(1))
+    big = layers._init(torch.Generator().manual_seed(0), (400, 500), 0.5, torch.float32)
+    assert abs(float(big.std()) - 0.5) < 0.01 and abs(float(big.mean())) < 0.01
+    # each block is the scaled f32 draw of its own slice, cast once
+    gen = torch.Generator().manual_seed(0)
+    rows = max(1, 20 // (math.prod(shape) // shape[0]))
+    blocks = [torch.randn((min(rows, shape[0] - i), *shape[1:]), generator=gen) * 0.5
+              for i in range(0, shape[0], rows)]
+    assert torch.equal(sliced, torch.cat(blocks).to(torch.bfloat16))
