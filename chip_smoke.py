@@ -49,7 +49,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                 63); and, in f32,
                 at the shapes phase 11 gives them (the serve demo's two
                 prefills and decodes over their prompt-long caches,
-                quickstart's attention forward and backward).  Tolerance: 1e-4 in f32 and 2e-2
+                quickstart's attention forward and backward); in both
+                dtypes at internvl2-1b's heads (H 14 over K 2, D 64: decode's
+                8-slot variant with one slot idle) and seamless-m4t-medium's
+                (H = K = 16, D 64): phase 23's and 24's prefills and decodes
+                at their first and last valid lengths, a ragged prefill, and
+                phase 25's attention forward and backward of a microbatch
+                (1 x 2048 and 4 x 1024).  Tolerance: 1e-4 in f32 and 2e-2
                 in bf16 against the plain version computed in f32 (the
                 attention forward absolute, the SSD scan and the backward
                 kernels relative to the largest reference magnitude).  Each
@@ -248,10 +254,50 @@ Phases, in order; any failure raises and the script exits non-zero:
                 give the same tokens; the first serve launches
                 flash_attention's Dv != D instance once a layer (its one
                 prefill) and no other kernel.
+  22. VLM and audio parity -- reduced internvl2-1b (8 patches) and
+                seamless-m4t-medium (32 frames), the same seeded params on
+                the card and on the CPU: in f32 a prefill with `extra`
+                (logits and every cache leaf, the encoder memory included)
+                and 8 greedy decode steps within 1e-4, tokens equal, and a
+                train step (phase 6's checks); in bf16 the whole model's
+                logits within 2e-2 of the largest magnitude.  The launches
+                of flash_attention, its backward and flash_decode held to
+                the path's count; the audio encoder and cross-attention
+                launch nothing (plain torch, as the reference's are jnp).
+  23. VLM serve -- internvl2-1b at full width and depth (24 layers, 14
+                heads over 2, vocab 151,655), bf16, random weights from seed
+                0, built once: `ServeEngine` on 8 text prompts of 387-510
+                tokens padded to 510 (at least d_head 64: under it `_grow`,
+                the reference's rule, leaves the cache prompt-long), 64
+                new, max_seq 576; then the patch path, `prefill(extra=)`
+                with 256 patch embeddings before 8 x 256 text tokens and 64
+                greedy tokens over the cache grown to 576 rows.  Prints
+                TTFT, tok/s, the median decode step against its byte bound,
+                peak memory and a profiler split; asserts flash_attention
+                24 and flash_decode 24 x 63 for each, a second run's tokens
+                equal.
+  24. audio serve -- seamless-m4t-medium at full width and depth (12
+                encoder and 12 decoder layers, d_model 1024, 16 heads,
+                vocab 256,206): `prefill(extra=frames)` with 8 x 1,024 frame
+                embeddings and 8 x 256 text tokens, 64 greedy tokens with
+                "self" grown to 320 rows and "enc" left as it is.  The same
+                numbers as phase 23, the decode step's byte bound beside the
+                operations of the cross k/v it recomputes, and the
+                encoder's device time against the decoder's; asserts
+                flash_attention 12 and flash_decode 12 x 63.
+  25. VLM and audio train -- `launch.train.main` at both models' full
+                width and depth, bf16, remat "full", 3 steps each: internvl
+                8 x (256 patches + 1,792 text) in 8 microbatches, seamless 8
+                x 1,024 tokens over 8 x 1,024 frames in 2; asserts the
+                launches of `train_launches`, finite losses (the first near
+                ln(vocab)) and grad norms, and that 3 steps on one batch
+                lower its loss.  Prints step seconds, tokens/s and peak
+                memory.
   8. a JSON line {"decision_sweep": [...]} (phase 12's rows), a JSON line
      {"campaign_sweep": [...]} (phase 16's), then a JSON line {"kernels":
      [...]} with each kernel's launches in phases 5, 7, 9, 10, 11, 14, 15,
-     16, 18, 19 and 21 and its numbers at its main path's shapes.
+     16, 18, 19, 21, 23, 24 and 25 and its numbers at its main path's
+     shapes.
   last, the line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package `repro`.
@@ -387,6 +433,30 @@ MLA_MAX_SEQ = MLA_PROMPT[1] + MLA_NEW
 # d_rope = 192 and Dv = d_v = 128, and its reduced sibling's 4 of 48 / 32
 MLA_ATTN = dict(H=128, K=128, D=192, Dv=128)
 MLA_ATTN_REDUCED = dict(H=4, K=4, D=48, Dv=32)
+# Phase 22's: reduced internvl2-1b (8 patches) and seamless-m4t-medium (32
+# frames) on the card against the CPU, 2 x VL_PARITY_TEXT text tokens and
+# VL_PARITY_NEW greedy tokens.  Phase 23's: internvl2-1b at full width and
+# depth (14 heads over 2, G = 7, D = 64), VLM_REQUESTS text prompts of
+# VLM_PROMPT tokens padded to VLM_PROMPT[1] (at least d_head 64 and the 24
+# layers: under them the engine's `_grow`, the reference's rule, leaves the
+# cache prompt-long and each decode step overwrites the last prompt row),
+# VLM_NEW new, max_seq VLM_MAX_SEQ; and the patch path, the config's 256
+# patches before VLM_PATCH_TEXT text tokens (512 rows) in the same cache.
+# Phase 24's: seamless-m4t-medium (16 = 16 heads, D = 64), AUDIO_BATCH x
+# AUDIO_TEXT text tokens over its 1,024 frames, AUDIO_NEW new, "self" grown
+# to AUDIO_CACHE rows.  Phase 25's: TRAIN_STEPS steps of TRAIN_BATCH x
+# VLM_TRAIN_SEQ text tokens after the 256 patches (2,048 rows) and of
+# TRAIN_BATCH x AUDIO_TRAIN_SEQ tokens over the frames, each in its config's
+# microbatches (8: one 2,048-row sequence; 2: 4 x 1,024).
+VL_PARITY_TEXT, VL_PARITY_NEW = 64, 9
+VLM_HEADS = dict(H=14, K=2, D=64)
+AUDIO_HEADS = dict(H=16, K=16, D=64)
+VLM_PATCHES = 256
+VLM_REQUESTS, VLM_PROMPT, VLM_NEW, VLM_MAX_SEQ = 8, (387, 510), 64, 576
+VLM_PATCH_TEXT = 256
+AUDIO_BATCH, AUDIO_TEXT, AUDIO_NEW = 8, 256, 64
+AUDIO_CACHE = AUDIO_TEXT + AUDIO_NEW
+TRAIN_STEPS, TRAIN_BATCH, VLM_TRAIN_SEQ, AUDIO_TRAIN_SEQ = 3, 8, 1792, 1024
 
 
 def moe_serve_batch():
@@ -587,6 +657,30 @@ def kernel_cases(torch, F, fa, fd, clock):
               ("flash_attention", "bfloat16",
                dict(MLA_ATTN_REDUCED, B=2, S=MLA_PARITY_PROMPT - 1)),
               ("flash_attention", "bfloat16", dict(MLA_ATTN, B=2, S=MLA_PARITY_PROMPT - 1))]
+    # phase 23's (internvl2-1b, G = 7: flash_decode's 8-slot variant with one
+    # slot idle): the patch path's prefill (8 x 512) and its decode over the
+    # 576-row cache at the first and the last valid length, and a ragged
+    # prefill; phase 24's (seamless-m4t-medium's decoder, G = 1): the
+    # prefill (8 x 256) and its decode over the 320-row cache
+    vp = VLM_PATCHES + VLM_PATCH_TEXT
+    for dt in ("bfloat16", "float32"):
+        cases += [("flash_attention", dt, dict(B=VLM_REQUESTS, S=vp, **VLM_HEADS)),
+                  ("flash_attention", dt, dict(B=AUDIO_BATCH, S=AUDIO_TEXT, **AUDIO_HEADS)),
+                  ("flash_attention", dt, dict(B=2, S=200, **VLM_HEADS))]
+        cases += [("flash_decode", dt, dict(B=VLM_REQUESTS, S=VLM_MAX_SEQ, **VLM_HEADS, vlen=vl))
+                  for vl in (vp + 1, vp + VLM_NEW - 1)]
+        cases += [("flash_decode", dt, dict(B=AUDIO_BATCH, S=AUDIO_CACHE, **AUDIO_HEADS,
+                                            vlen=vl))
+                  for vl in (AUDIO_TEXT + 1, AUDIO_CACHE - 1)]
+    # the engine's prefill in phase 23 (8 x 510) and its decode's first and
+    # last valid length; phase 25's training forwards (a microbatch each)
+    cases += [("flash_attention", "bfloat16", dict(B=VLM_REQUESTS, S=VLM_PROMPT[1], **VLM_HEADS))]
+    cases += [("flash_decode", "bfloat16", dict(B=VLM_REQUESTS, S=VLM_MAX_SEQ, **VLM_HEADS,
+                                                vlen=vl))
+              for vl in (VLM_PROMPT[1] + 1, VLM_PROMPT[1] + VLM_NEW - 1)]
+    cases += [("flash_attention", "bfloat16",
+               dict(B=1, S=VLM_PATCHES + VLM_TRAIN_SEQ, **VLM_HEADS)),
+              ("flash_attention", "bfloat16", dict(B=4, S=AUDIO_TRAIN_SEQ, **AUDIO_HEADS))]
 
     for kname, dtn, c in cases:
         dt = getattr(torch, dtn)
@@ -816,6 +910,13 @@ def training_kernel_cases(torch, F, fa, ssd, clock):
     # phase 11's quickstart backward (f32); phase 15's backward (bf16, D = 128)
     quick_fa = [dict(B=QUICK_BATCH, S=QUICK_SEQ, H=6, K=6, D=64)]
     moe_fa = [dict(B=2, S=MOE_TRAIN_SEQ, **MOE_HEADS)]
+    # phase 25's: internvl2-1b's microbatch (one 2,048-row sequence, G = 7)
+    # in both dtypes; seamless-m4t-medium's decoder microbatch (4 x 1,024)
+    # (from a generator of their own, so the draws before them stay)
+    vlm_fa = [dict(B=1, S=VLM_PATCHES + VLM_TRAIN_SEQ, **VLM_HEADS)]
+    audio_fa = [dict(B=4, S=AUDIO_TRAIN_SEQ, **AUDIO_HEADS)]
+    g_vl = torch.Generator(device="cuda")
+    g_vl.manual_seed(4)
     for dtn in ("bfloat16", "float32"):
         dt = getattr(torch, dtn)
         bf16 = dtn == "bfloat16"
@@ -919,11 +1020,13 @@ def training_kernel_cases(torch, F, fa, ssd, clock):
             raise AssertionError(f"ssd_scan_bwd {dtn} at the model's decay: {checked} > "
                                  f"{TOL[dtn]}")
         del got, refs
-        for c in fa_shapes + (live_fa + moe_fa if bf16 else quick_fa):
+        for c in fa_shapes + (live_fa + moe_fa if bf16 else quick_fa) + vlm_fa + \
+                (audio_fa if bf16 else []):
             B, S, H, K, D = (c[k] for k in ("B", "S", "H", "K", "D"))
             scale = 1.0 / math.sqrt(D)
-            q, k, v = rnd((B, S, H, D), dt), rnd((B, S, K, D), dt), rnd((B, S, K, D), dt)
-            do = rnd((B, S, H, D), dt)
+            gen = g_vl if c in vlm_fa + audio_fa else g
+            q, k, v = (rnd((B, S, n, D), dt, gen=gen) for n in (H, K, K))
+            do = rnd((B, S, H, D), dt, gen=gen)
             o, lse = fa.flash_attention_fwd(q, k, v, causal=True, scale=scale)
             got = fa._launch_bwd(q, k, v, o, lse, do, causal=True, scale=scale)
             refs = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(),
@@ -1031,29 +1134,32 @@ def train_parity(torch, cfg, tag: str = "train_parity"):
                              f"{worst} > 2e-2 relative")
 
 
-def _greedy(torch, params, cfg, toks, n_new: int, cache_rows: int = 0):
-    """Hybrid and xLSTM serving as the reference serves them (`prefill`,
-    then greedy `decode_step`; no engine): prefill the prompts, grow the
-    attention caches (a hybrid model's `attn`; dense, MoE and MLA
-    `pre_layers` and `layers`) to `cache_rows` rows, decode n_new - 1
-    tokens, each to the host as the engine takes it.  Returns (the
-    prefill's logits and a copy of its cache leaves, each decode step's
-    logits, the tokens (B, n_new), TTFT s, each decode step's s, the cache
-    after the last step)."""
+def _greedy(torch, params, cfg, toks, n_new: int, cache_rows: int = 0, extra=None):
+    """Serving through `prefill` (with `extra`: a VLM's patch or an audio
+    model's frame embeddings), then greedy `decode_step`, as the reference
+    serves the models its engine refuses: prefill the prompts, grow the
+    self-attention caches (a hybrid model's `attn`; dense, MoE, MLA and VLM
+    `pre_layers` and `layers`; audio `self`) from their own rows to
+    `cache_rows` rows, leaving every other leaf (audio `enc`) as it is,
+    decode n_new - 1 tokens from the prefill's last row on, each to the
+    host as the engine takes it.  Returns (the prefill's logits and a copy
+    of its cache leaves, each decode step's logits, the tokens (B, n_new),
+    TTFT s, each decode step's s, the cache after the last step)."""
     from repro_torch.models import decode_step, prefill
-    S = toks.shape[1]
+    S = toks.shape[1] + (extra.shape[1] if cfg.family == "vlm" and extra is not None else 0)
     sync = torch.cuda.synchronize if toks.is_cuda else (lambda: None)
     with torch.no_grad():
         sync()
         t0 = time.perf_counter()
-        logits, cache = prefill(params, toks, cfg)
-        pre = (logits, [t.clone() for leaves in cache.values() for t in leaves])
-        for name in ("attn", "pre_layers", "layers"):
+        logits, cache = prefill(params, toks, cfg, extra=extra)
+        pre = (logits, [t.clone() for leaves in cache.values()
+                        for t in (leaves if isinstance(leaves, tuple) else (leaves,))])
+        for name in ("attn", "pre_layers", "layers", "self"):
             if name in cache:
                 grown = []
                 for c in cache[name]:
                     full = c.new_zeros((*c.shape[:2], cache_rows, *c.shape[3:]))
-                    full[:, :, :S] = c
+                    full[:, :, :c.shape[2]] = c
                     grown.append(full)
                 cache[name] = tuple(grown)
         tok = logits.argmax(-1)
@@ -2245,11 +2351,7 @@ def _mla_launches(launches: dict, n: int, what: str) -> None:
     """MLA runs one hand-written kernel: flash_attention's Dv != D instance,
     once a layer and prefill (its decode is the absorbed einsums).  Fail
     unless it launched n times and no other kernel launched."""
-    expected = {name: 0 for name in launches}
-    expected.update(flash_attention=n, flash_attention_mla=n)
-    print(f"launches {launches}, expected {expected}")
-    if launches != expected:
-        raise AssertionError(f"{what}: kernel launches {launches} != {expected}")
+    _expect_launches(launches, what, flash_attention=n, flash_attention_mla=n)
 
 
 def mla_parity(torch, fa, fd, ssd):
@@ -2322,18 +2424,23 @@ def mla_parity(torch, fa, fd, ssd):
 
 
 # ----------------------------------------------------------- 21. MLA serve
-def mla_requests(vocab: int):
-    """Phase 21's requests, from numpy's generator (seed 0): MLA_REQUESTS
-    prompts, the first MLA_PROMPT[1] tokens long and the others of a length
-    drawn from MLA_PROMPT, each asking for MLA_NEW tokens."""
+def padded_requests(vocab: int, n: int, prompt, new: int):
+    """n requests from numpy's generator (seed 0): the first prompt[1]
+    tokens long, so the batch is padded to prompt[1], and the others of a
+    length drawn from prompt, each asking for `new` tokens."""
     import numpy as np
     from repro_torch.serving import Request
 
     rng = np.random.default_rng(0)
-    lens = [MLA_PROMPT[1], *(int(n) for n in rng.integers(MLA_PROMPT[0], MLA_PROMPT[1] + 1,
-                                                            MLA_REQUESTS - 1))]
-    return [Request(rid=i, prompt=rng.integers(0, vocab, n, dtype=np.int32),
-                    max_new_tokens=MLA_NEW) for i, n in enumerate(lens)]
+    lens = [prompt[1], *(int(x) for x in rng.integers(prompt[0], prompt[1] + 1, n - 1))]
+    return [Request(rid=i, prompt=rng.integers(0, vocab, x, dtype=np.int32),
+                    max_new_tokens=new) for i, x in enumerate(lens)]
+
+
+def mla_requests(vocab: int):
+    """Phase 21's requests: MLA_REQUESTS prompts padded to MLA_PROMPT[1],
+    MLA_NEW new tokens each."""
+    return padded_requests(vocab, MLA_REQUESTS, MLA_PROMPT, MLA_NEW)
 
 
 def mla_decode_step_bytes(cfg, params, batch: int, rows: int) -> dict:
@@ -2465,6 +2572,420 @@ def full_width_mla_serve(torch, fa, fd, ssd):
     return launches
 
 
+# ------------------------------------------------- 22. VLM and audio parity
+def _expect_launches(launches: dict, what: str, **counts) -> None:
+    """Fail unless each kernel launched as `counts` says, 0 for the others."""
+    expected = {name: 0 for name in launches}
+    expected.update(counts)
+    print(f"launches {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"{what}: kernel launches {launches} != {expected}")
+
+
+def _leaves(cache) -> list:
+    """A cache's leaves in its own order (tuples opened, tensors as they are)."""
+    return [t for leaf in cache.values() for t in (leaf if isinstance(leaf, tuple) else (leaf,))]
+
+
+def vlm_audio_parity(torch, fa, fd, ssd):
+    """Reduced internvl2-1b and seamless-m4t-medium, the same seeded params
+    on the card and on the CPU.  f32 (TF32 off): a prefill with `extra`
+    (logits and every cache leaf: the VLM's layers over patches and text,
+    the audio model's self-attention k/v and its encoder memory) and
+    VL_PARITY_NEW - 1 greedy decode steps (logits, the leaves after them)
+    within 1e-4, tokens equal; one train step (phase 6's checks: f32 loss,
+    grad norm and params within 1e-4, bf16 loss and grad norm within 2e-2).
+    bf16: the whole model's logits within 2e-2 of the largest magnitude
+    (nothing routes, so no flip excuses a miss).  Launches: flash_attention
+    once a (decoder) layer and prefill or forward, flash_decode once a layer
+    and step, flash_attention_bwd once a layer and train step; the audio
+    encoder and every cross-attention launch nothing."""
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.models import forward, init_params
+    from repro_torch.training import synthetic_batch
+
+    counters = _zeroed_counters(fa, fd, ssd)
+    n_fa = n_fd = n_bwd = 0
+    for arch in ("internvl2_1b", "seamless_m4t_medium"):
+        cfg = reduced(arch)
+        L = cfg.n_layers
+        params = init_params(cfg, seed=0, device="cpu")
+        batch = synthetic_batch(cfg, 2, VL_PARITY_TEXT, seed=5, device="cpu")
+        rows = VL_PARITY_TEXT + VL_PARITY_NEW - 1 + (cfg.n_patches if cfg.family == "vlm" else 0)
+        out = {dev: _greedy(torch, p, cfg, batch.tokens.to(dev), VL_PARITY_NEW, rows,
+                            extra=batch.extra.to(dev))
+               for dev, p in (("cpu", params), ("cuda", _to(params, "cuda")))}
+        n_fa += L
+        n_fd += L * (VL_PARITY_NEW - 1)
+        (cl, cc), csteps, ctoks, _, _, cfinal = out["cpu"]
+        (gl, gc), gsteps, gtoks, _, _, gfinal = out["cuda"]
+        err = {"logits": max(float((g.cpu() - c).abs().max())
+                             for g, c in zip([gl, *gsteps], [cl, *csteps], strict=True))}
+        names = [f"{n}[{i}]" for n, leaf in cfinal.items()
+                 for i in range(len(leaf) if isinstance(leaf, tuple) else 1)]
+        for when, (gs, cs) in (("prefill", (gc, cc)),
+                               ("decoded", (_leaves(gfinal), _leaves(cfinal)))):
+            for name, g, c in zip(names, gs, cs, strict=True):
+                err[f"{when} {name}"] = float((g.cpu() - c).abs().max())
+        ok = max(err.values()) <= 1e-4 and gtoks == ctoks
+        print(json.dumps({"vl_serve_parity": {"arch": cfg.name, "max_abs_err": err,
+                                              "tokens_equal": gtoks == ctoks,
+                                              "tokens": gtoks[0]}}), flush=True)
+        if not ok:
+            raise AssertionError(f"reduced {cfg.name} serving differs cuda vs cpu: {err}, "
+                                 f"tokens equal {gtoks == ctoks}")
+        train_parity(torch, cfg, tag=f"{cfg.name}_train_parity")
+        n_fa += 2 * L                     # the f32 and the bf16 step, remat "none"
+        n_bwd += 2 * L
+        bf = cfg.with_(param_dtype="bfloat16", compute_dtype="bfloat16")
+        bparams = init_params(bf, seed=0, device="cpu")
+        with torch.no_grad():
+            lc = forward(bparams, batch.tokens, bf, batch.extra).float()
+            lg = forward(_to(bparams, "cuda"), batch.tokens.cuda(), bf,
+                         batch.extra.cuda()).float().cpu()
+        n_fa += L
+        rel = float((lg - lc).abs().max()) / float(lc.abs().max())
+        print(json.dumps({"vl_model_bf16": {"arch": cfg.name, "max_rel_err": rel,
+                                            "max_abs_logit": float(lc.abs().max())}}),
+              flush=True)
+        if not rel <= 2e-2:
+            raise AssertionError(f"bf16 reduced {cfg.name} logits differ cuda vs cpu by "
+                                 f"{rel} > 2e-2 of the largest")
+    _expect_launches(counters(), "vlm / audio parity", flash_attention=n_fa,
+                     flash_decode=n_fd, flash_attention_bwd=n_bwd)
+
+
+# ----------------------------------------------------------- 23. VLM serve
+def decode_step_bytes(params, batch: int, unused=(), cache_read: int = 0,
+                      row: int = 0) -> dict:
+    """A decode step's least bytes: every weight it uses read once (all but
+    the top-level `unused` params and the token embedding's unused rows; the
+    unembedding is its own table, read whole), `cache_read` bytes of cache
+    and memory read, `row` bytes written."""
+    from repro_torch.training.optimizer import tree_leaves
+
+    weight = sum(t.numel() * t.element_size() for name, p in params.items()
+                 if name not in unused for t in tree_leaves(p))
+    tok = params["embed"]["tok"]
+    weight -= (tok.shape[0] - batch) * tok.shape[1] * tok.element_size()
+    return {"weight_bytes": weight, "cache_read_bytes": cache_read, "row_bytes": row,
+            "bytes": weight + cache_read + row}
+
+
+def _serve_stats(step_s, ttft: float, n_tok: int, peak: int, before: int) -> dict:
+    decode_s = sum(step_s)
+    return {"ttft_s": ttft, "decode_s": decode_s, "tok_per_s": n_tok / (ttft + decode_s),
+            "decode_step_ms_median": 1e3 * sorted(step_s)[len(step_s) // 2],
+            "decode_step_ms_first_last": [1e3 * step_s[0], 1e3 * step_s[-1]],
+            "max_memory_allocated": peak, "phase_peak_bytes": peak - before}
+
+
+def full_width_vlm_serve(torch, fa, fd, ssd):
+    """internvl2-1b at full width and depth (24 layers, d_model 896, 14
+    heads over 2, vocab 151,655), bf16, random weights from seed 0, built
+    once.  `ServeEngine` serves VLM_REQUESTS text prompts padded to
+    VLM_PROMPT[1] (the reference's engine passes no patches); then the
+    patch path: `prefill(extra=patches)` with `synthetic_batch`'s 256 patch
+    embeddings before VLM_PATCH_TEXT text tokens, and greedy `decode_step`
+    over the cache grown to VLM_MAX_SEQ rows.  Counts are zeroed just
+    before each and read just after; a second run of each must give the
+    same tokens.  Returns the launches of both."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serving import ServeEngine
+    from repro_torch.training import synthetic_batch
+    from repro_torch.training.optimizer import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    cfg = get_config("internvl2_1b")
+    L = cfg.n_layers
+    params = init_params(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    engine = ServeEngine(cfg, params, max_seq=VLM_MAX_SEQ, device="cuda")
+
+    def serve():
+        reqs = padded_requests(cfg.vocab, VLM_REQUESTS, VLM_PROMPT, VLM_NEW)
+        engine.serve_batch(reqs)
+        torch.cuda.synchronize()
+        return reqs
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _zeroed_counters(fa, fd, ssd)
+    t0 = time.perf_counter()
+    reqs = serve()
+    seconds = time.perf_counter() - t0
+    engine_launches = counters()
+    outputs = [r.tokens_out for r in reqs]
+    B, S = len(reqs), max(len(r.prompt) for r in reqs)
+    step_s = list(engine.step_seconds)
+    ttft = max(r.first_token_at - r.submitted_at for r in reqs)
+    stats = {"requests": B, "prompt_lens": [len(r.prompt) for r in reqs], "padded_prompt": S,
+             "max_seq": VLM_MAX_SEQ, "seconds": seconds, "params": n_params,
+             **_serve_stats(step_s, ttft, sum(len(o) for o in outputs),
+                            torch.cuda.max_memory_allocated(), before)}
+    print(json.dumps({"vlm_serve_engine": stats, "launches": engine_launches,
+                      "first_tokens": [o[:8] for o in outputs]}), flush=True)
+    _expect_launches(engine_launches, "vlm serve (engine)", flash_attention=L,
+                     flash_decode=L * (VLM_NEW - 1))
+    if (B, S) != (VLM_REQUESTS, VLM_PROMPT[1]) or len(step_s) != VLM_NEW - 1:
+        raise AssertionError(f"served {B} x {S} in {len(step_s)} decode steps")
+    if any(len(o) != VLM_NEW or not all(0 <= t < cfg.vocab for t in o) for o in outputs):
+        raise AssertionError(f"a request did not return {VLM_NEW} tokens in the vocab")
+    again = [r.tokens_out for r in serve()]
+    print(f"vlm engine serve deterministic: {again == outputs}")
+    if again != outputs:
+        raise AssertionError("a second serve of the same requests gave other tokens")
+    row = 2 * L * B * cfg.n_kv * cfg.d_head * 2          # one bf16 k/v row, every layer
+    vlen = S + VLM_NEW // 2                              # the median step's valid rows
+    step = decode_step_bytes(params, B, ("patch_proj",), row * vlen, row)
+    print(json.dumps({"vlm_engine_decode_step": {
+        "median_ms": stats["decode_step_ms_median"], **step,
+        "bound_ms": 1e3 * step["bytes"] / HBM_BYTES_PER_S,
+        "formula": "weights but patch_proj and the unused token-embedding rows + the bf16 "
+                   f"k/v cache over {vlen} rows + one row written"}}), flush=True)
+
+    # the patch path
+    batch = synthetic_batch(cfg, VLM_REQUESTS, VLM_PATCH_TEXT, seed=0, device="cuda")
+    rows = VLM_PATCHES + VLM_PATCH_TEXT
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _zeroed_counters(fa, fd, ssd)
+    (logits, _), steps, tokens, ttft, step_s, cache = _greedy(
+        torch, params, cfg, batch.tokens, VLM_NEW, VLM_MAX_SEQ, extra=batch.extra)
+    torch.cuda.synchronize()
+    patch_launches = counters()
+    finite = bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(lg).all()) for lg in steps)
+    stats = {"batch": VLM_REQUESTS, "patches": VLM_PATCHES, "text": VLM_PATCH_TEXT,
+             "rows": rows, "cache_rows": cache["layers"][0].shape[2],
+             **_serve_stats(step_s, ttft, VLM_REQUESTS * VLM_NEW,
+                            torch.cuda.max_memory_allocated(), before)}
+    print(json.dumps({"vlm_serve_patches": stats, "launches": patch_launches,
+                      "first_tokens": [t[:8] for t in tokens]}), flush=True)
+    _expect_launches(patch_launches, "vlm serve (patches)", flash_attention=L,
+                     flash_decode=L * (VLM_NEW - 1))
+    if not (finite and stats["cache_rows"] == VLM_MAX_SEQ
+            and all(len(t) == VLM_NEW and all(0 <= v < cfg.vocab for v in t) for t in tokens)):
+        raise AssertionError(f"non-finite logits, or a sequence without {VLM_NEW} tokens "
+                             "in the vocab")
+    del steps, cache
+    again = _greedy(torch, params, cfg, batch.tokens, VLM_NEW, VLM_MAX_SEQ,
+                    extra=batch.extra)[2]
+    print(f"vlm patch serve deterministic: {again == tokens}")
+    if again != tokens:
+        raise AssertionError("a second serve of the same patches and prompts gave other "
+                             "tokens")
+    vlen = rows + VLM_NEW // 2
+    step = decode_step_bytes(params, VLM_REQUESTS, ("patch_proj",), row * vlen, row)
+    print(json.dumps({"vlm_patch_decode_step": {
+        "median_ms": stats["decode_step_ms_median"], **step,
+        "bound_ms": 1e3 * step["bytes"] / HBM_BYTES_PER_S}}), flush=True)
+    # where a prefill's and a decode step's time goes
+    with torch.no_grad():
+        (logits, cache), pre = profile_call(
+            torch, lambda: prefill(params, batch.tokens, cfg, extra=batch.extra))
+        cache = {n: tuple(torch.nn.functional.pad(c, (0, 0, 0, 0, 0, VLM_MAX_SEQ - rows))
+                          for c in kv) for n, kv in cache.items()}
+        nxt = logits.argmax(-1)[:, None]
+        decode_step(params, cache, nxt, rows, cfg)            # warm
+        _, dec = profile_call(torch, lambda: decode_step(params, cache, nxt, rows + 1, cfg))
+    print(json.dumps({"vlm_profile": {"prefill": pre, "decode_step": dec}}), flush=True)
+    del params, engine, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: engine_launches[k] + patch_launches[k] for k in engine_launches}
+
+
+# --------------------------------------------------------- 24. audio serve
+def full_width_audio_serve(torch, fa, fd, ssd):
+    """seamless-m4t-medium at full width and depth (12 encoder and 12
+    decoder layers, d_model 1024, 16 heads, vocab 256,206), bf16, random
+    weights from seed 0: `prefill(extra=frames)` with `synthetic_batch`'s
+    AUDIO_BATCH x 1,024 frame embeddings and AUDIO_TEXT text tokens, then
+    greedy `decode_step` with "self" grown to AUDIO_CACHE rows and "enc"
+    left as it is (the engine refuses enc-dec models, as the reference's
+    does).  Counts are zeroed just before and read just after; a second
+    run must give the same tokens.  Prints the encoder's and the decoder's
+    device time in a prefill.  Returns the launches."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, model, prefill
+    from repro_torch.training import synthetic_batch
+    from repro_torch.training.optimizer import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    cfg = get_config("seamless_m4t_medium")
+    L = cfg.n_layers
+    params = init_params(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = synthetic_batch(cfg, AUDIO_BATCH, AUDIO_TEXT, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _zeroed_counters(fa, fd, ssd)
+    (logits, pre_leaves), steps, tokens, ttft, step_s, cache = _greedy(
+        torch, params, cfg, batch.tokens, AUDIO_NEW, AUDIO_CACHE, extra=batch.extra)
+    torch.cuda.synchronize()
+    launches = counters()
+    finite = bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(lg).all()) for lg in steps)
+    enc_kept = torch.equal(cache["enc"], pre_leaves[-1])
+    stats = {"batch": AUDIO_BATCH, "frames": cfg.enc_len, "text": AUDIO_TEXT,
+             "self_rows": cache["self"][0].shape[2], "enc": list(cache["enc"].shape),
+             "params": n_params,
+             **_serve_stats(step_s, ttft, AUDIO_BATCH * AUDIO_NEW,
+                            torch.cuda.max_memory_allocated(), before)}
+    print(json.dumps({"audio_serve": stats, "launches": launches,
+                      "first_tokens": [t[:8] for t in tokens]}), flush=True)
+    _expect_launches(launches, "audio serve", flash_attention=L,
+                     flash_decode=L * (AUDIO_NEW - 1))
+    if not (finite and enc_kept and stats["self_rows"] == AUDIO_CACHE
+            and stats["enc"] == [AUDIO_BATCH, cfg.enc_len, cfg.d_model]
+            and all(len(t) == AUDIO_NEW and all(0 <= v < cfg.vocab for v in t)
+                    for t in tokens)):
+        raise AssertionError(f"non-finite logits, a changed or regrown encoder memory "
+                             f"(kept {enc_kept}), or a sequence without {AUDIO_NEW} tokens")
+    del steps, cache, pre_leaves
+    again = _greedy(torch, params, cfg, batch.tokens, AUDIO_NEW, AUDIO_CACHE,
+                    extra=batch.extra)[2]
+    print(f"audio serve deterministic: {again == tokens}")
+    if again != tokens:
+        raise AssertionError("a second serve of the same frames and prompts gave other "
+                             "tokens")
+    # a decode step reads the decoder's weights, the encoder memory and the
+    # self-attention cache up to its valid length, writes one k/v row, and
+    # projects k and v from the memory again in every layer (its operations)
+    row = 2 * L * AUDIO_BATCH * cfg.n_kv * cfg.d_head * 2
+    vlen = AUDIO_TEXT + AUDIO_NEW // 2
+    mem = AUDIO_BATCH * cfg.enc_len * cfg.d_model * 2
+    step = decode_step_bytes(params, AUDIO_BATCH, ("enc_layers", "ln_enc"),
+                             row * vlen + mem, row)
+    cross_kv_flops = L * 2 * 2 * AUDIO_BATCH * cfg.enc_len * cfg.d_model * cfg.n_kv * cfg.d_head
+    print(json.dumps({"audio_decode_step": {
+        "median_ms": stats["decode_step_ms_median"], **step,
+        "bound_ms": 1e3 * step["bytes"] / HBM_BYTES_PER_S,
+        "cross_kv_flops": cross_kv_flops,
+        "cross_kv_ops_ms": 1e3 * cross_kv_flops / PEAK_FLOPS["bfloat16"],
+        "formula": "decoder weights but the unused token-embedding rows + the encoder "
+                   f"memory + the bf16 self k/v over {vlen} rows + one row written; the "
+                   "cross k/v recomputed from the memory every step"}}), flush=True)
+    # where a prefill's time goes: the encoder alone, then the whole prefill
+    with torch.no_grad():
+        prefill(params, batch.tokens, cfg, extra=batch.extra)     # warm
+        _, enc = profile_call(torch, lambda: model._encode(params, batch.extra, cfg,
+                                                           remat=False))
+        (logits, cache), pre = profile_call(
+            torch, lambda: prefill(params, batch.tokens, cfg, extra=batch.extra))
+        cache["self"] = tuple(torch.nn.functional.pad(c, (0, 0, 0, 0, 0, AUDIO_NEW))
+                              for c in cache["self"])
+        nxt = logits.argmax(-1)[:, None]
+        decode_step(params, cache, nxt, AUDIO_TEXT, cfg)            # warm
+        _, dec = profile_call(torch, lambda: decode_step(params, cache, nxt,
+                                                         AUDIO_TEXT + 1, cfg))
+    print(json.dumps({"audio_profile": {
+        "encoder": enc, "prefill": pre, "decoder_busy_ms": pre["busy_ms"] - enc["busy_ms"],
+        "decode_step": dec}}), flush=True)
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------- 25. VLM and audio train
+def one_batch_losses(torch, cfg, seq: int) -> list:
+    """TRAIN_STEPS steps of `launch.train.main`'s model and optimizer (seed
+    0, AdamW at its lr 3e-4, warmup and schedule) on its first batch,
+    TRAIN_BATCH x seq, every step: the losses before each step and after
+    the last."""
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.training import (AdamW, make_train_state, make_train_step,
+                                      synthetic_batch)
+
+    opt = AdamW(lr=3e-4, warmup=min(100, TRAIN_STEPS // 10 + 1), total_steps=TRAIN_STEPS)
+    state = make_train_state(init_params(cfg, seed=0, device="cuda"), opt)
+    step = make_train_step(cfg, opt, microbatches=cfg.train_microbatches)
+    batch = synthetic_batch(cfg, TRAIN_BATCH, seq, step=0, device="cuda")
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    mb = cfg.train_microbatches
+    with torch.no_grad():                   # the last loss, in the same microbatches
+        last = sum(float(loss_fn(state.params, type(batch)(*(
+            None if x is None else x[i * TRAIN_BATCH // mb:(i + 1) * TRAIN_BATCH // mb]
+            for x in batch)), cfg)[0]) for i in range(mb)) / mb
+    return losses + [last]
+
+
+def full_width_vlm_audio_train(torch, fa, fd, ssd):
+    """internvl2-1b and seamless-m4t-medium at full width and depth, bf16,
+    remat "full", each in its config's microbatches, through
+    `launch.train.main`: TRAIN_STEPS steps of TRAIN_BATCH x VLM_TRAIN_SEQ
+    text tokens after 256 patches, and of TRAIN_BATCH x AUDIO_TRAIN_SEQ
+    tokens over 1,024 frames.  Counts zeroed just before each, read just
+    after and held to `train_launches`; the losses finite, the first near
+    ln(vocab), the grad norms finite.  Each step draws a new batch (a
+    random walk from a new random base token), so those losses are of
+    different data; that training lowers the loss is held on one batch:
+    the same model and optimizer, TRAIN_STEPS steps on the first batch,
+    whose last loss must be below its first (`one_batch_losses`).  Returns
+    the launches of each ({"vlm": ..., "audio": ...})."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import main as train_main
+
+    out = {}
+    for key, arch, seq, rows in (("vlm", "internvl2-1b", VLM_TRAIN_SEQ,
+                                  VLM_PATCHES + VLM_TRAIN_SEQ),
+                                 ("audio", "seamless-m4t-medium", AUDIO_TRAIN_SEQ,
+                                  AUDIO_TRAIN_SEQ)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        argv = ["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+                "--seq", str(seq)]
+        counters = _zeroed_counters(fa, fd, ssd)
+        stats = train_main(argv)
+        launches = counters()
+        print(json.dumps({f"{key}_train": stats, "launches": launches}), flush=True)
+        cfg = get_config(arch)
+        per_step = train_launches(cfg, cfg.train_microbatches)
+        _expect_launches(launches, f"{arch} train",
+                         **{k: TRAIN_STEPS * n for k, n in per_step.items()})
+        losses, gnorms = stats["losses"], stats["grad_norms"]
+        if not (len(losses) == TRAIN_STEPS
+                and all(math.isfinite(x) for x in losses + gnorms)
+                and abs(losses[0] - math.log(cfg.vocab)) < 1.5):
+            raise AssertionError(f"{arch}: losses {losses}, grad norms {gnorms}: not "
+                                 f"{TRAIN_STEPS} finite, or the first far from ln {cfg.vocab}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        same = one_batch_losses(torch, cfg, seq)
+        print(json.dumps({f"{key}_one_batch_losses": same}), flush=True)
+        if not (all(math.isfinite(x) for x in same) and same[-1] < same[0]):
+            raise AssertionError(f"{arch}: {TRAIN_STEPS} steps on one batch did not lower its "
+                                 f"loss: {same}")
+        step_s = stats["step_seconds"]
+        print(json.dumps({f"{key}_train_rates": {
+            "step_seconds": step_s, "microbatches": cfg.train_microbatches,
+            "rows_per_step": TRAIN_BATCH * rows, "text_tokens_per_step": TRAIN_BATCH * seq,
+            "tokens_per_s": stats["tokens_per_s"],
+            "steady_text_tokens_per_s": TRAIN_BATCH * seq / min(step_s[1:]),
+            "steady_rows_per_s": TRAIN_BATCH * rows / min(step_s[1:]),
+            "max_memory_allocated": stats["max_memory_allocated"]}}), flush=True)
+        out[key] = launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2577,6 +3098,25 @@ def main(argv=None) -> int:
           f"prompt tokens padded to {MLA_PROMPT[1]}, {MLA_NEW} new)")
     mla_serve_launches = full_width_mla_serve(torch, fa, fd, ssd)
 
+    phase("22. VLM and audio parity (reduced internvl2-1b and seamless-m4t-medium, f32 and "
+          "bf16, cuda vs cpu)")
+    vlm_audio_parity(torch, fa, fd, ssd)
+
+    phase(f"23. full-width internvl2-1b serve (bf16, 24 layers; the engine on "
+          f"{VLM_REQUESTS} x {VLM_PROMPT[0]}-{VLM_PROMPT[1]} prompt tokens padded to "
+          f"{VLM_PROMPT[1]}, and {VLM_PATCHES} patches + {VLM_PATCH_TEXT} text tokens; "
+          f"{VLM_NEW} new, {VLM_MAX_SEQ} rows)")
+    vlm_serve_launches = full_width_vlm_serve(torch, fa, fd, ssd)
+
+    phase(f"24. full-width seamless-m4t-medium serve (bf16, 12 + 12 layers, {AUDIO_BATCH} x "
+          f"1024 frames and {AUDIO_TEXT} text tokens, {AUDIO_NEW} new)")
+    audio_serve_launches = full_width_audio_serve(torch, fa, fd, ssd)
+
+    phase(f"25. full-width internvl2-1b and seamless-m4t-medium train (bf16, {TRAIN_STEPS} "
+          f"steps of {TRAIN_BATCH} x ({VLM_PATCHES} + {VLM_TRAIN_SEQ}) and {TRAIN_BATCH} x "
+          f"{AUDIO_TRAIN_SEQ} over 1024 frames)")
+    vl_train_launches = full_width_vlm_audio_train(torch, fa, fd, ssd)
+
     phase("8. kernels")
     main_shape = {
         "flash_attention": ("bfloat16", dict(B=8, S=512, H=32, K=8, D=128)),
@@ -2615,7 +3155,11 @@ def main(argv=None) -> int:
                    "campaigns": campaign_launches[name],
                    "xlstm_serve": xlstm_serve_launches[name],
                    "xlstm_train": xlstm_train_launches[name],
-                   "mla_serve": mla_serve_launches[name]}
+                   "mla_serve": mla_serve_launches[name],
+                   "vlm_serve": vlm_serve_launches[name],
+                   "audio_serve": audio_serve_launches[name],
+                   "vlm_train": vl_train_launches["vlm"][name],
+                   "audio_train": vl_train_launches["audio"][name]}
         kernels.append({"name": name, "route": "cuda", "source": meta[name][0],
                         "replaces": meta[name][1], "launches": sum(by_path.values()),
                         "launches_by_path": by_path,

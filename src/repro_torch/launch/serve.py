@@ -3,9 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --reduced --requests 8 --max-new 32 [--device cpu]
 
-Any dense or MoE arch serves (`--arch olmoe-1b-7b`; `--arch deepseek-v2-236b`
-with a batch padded to at least its kv_lora tokens, 64 reduced, or decode
-fails as the reference's does); the others raise.
+Any dense, MoE or VLM arch serves (`--arch olmoe-1b-7b`; `--arch
+deepseek-v2-236b` with a batch padded to at least its kv_lora tokens, 64
+reduced, or decode fails as the reference's does; `--arch internvl2-1b`
+text alone, as the reference's engine serves it, padded to at least its 64
+head dims, 32 reduced, or decode overwrites the last prompt row as the
+reference's does); the others raise.
 
 Runs on CUDA unless `--device cpu` is given; with the default device and no
 CUDA it raises rather than fall back.  Weights and prompts are random, from seed 0.

@@ -8,7 +8,9 @@ Runs on CUDA unless `--device cpu` is given; with the default device and no
 CUDA it raises rather than fall back.  `--reduced` swaps in the same-family
 smoke config and `--layers N` cuts the depth (for a model whose full depth
 does not fit on one card: `--arch olmoe-1b-7b --layers 8`).  Weights are
-random from seed 0 and the data is `synthetic_batch`.  Restart after a
+random from seed 0 and the data is `synthetic_batch`, with the patch
+(`--arch internvl2-1b`: `--seq` text tokens after its 256 patches) or frame
+(`--arch seamless-m4t-medium`: 1,024 frames) embeddings it draws.  Restart after a
 failure is re-running the same command: the launcher resumes from the
 newest checkpoint in `--ckpt-dir`.
 """

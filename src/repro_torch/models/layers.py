@@ -4,8 +4,7 @@ The port's counterpart of `repro.models.layers`, with the same parameter
 dictionaries and layouts (`wq` is (d, H, Dh), `wo` is (H, Dh, d)), so JAX
 params load with no transposes.  `init_*` builds a param dict from a seeded
 `torch.Generator`; `*_fwd` applies it.  `lead` prepends stacking dims, e.g.
-(L,) for the model's per-layer stacks.  Cross-attention comes with its
-slice.
+(L,) for the model's per-layer stacks.
 """
 from __future__ import annotations
 
@@ -116,10 +115,14 @@ def gqa_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             positions: torch.Tensor,
             cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
             cache_index: Optional[int] = None,
+            kv_source: Optional[torch.Tensor] = None,
             causal: bool = True, return_kv: bool = False):
-    """GQA/MQA self-attention.  Modes:
+    """GQA/MQA attention.  Modes:
        * train/prefill: cache is None, full self-attention over x; with
          return_kv the new (k, v) come back as the cache content.
+       * cross: kv_source (B, Skv, d) given (the encoder's memory): k and v
+         are projected from it, with no RoPE on q or k, and every query
+         sees every row (plain torch, as the reference's is jnp).
        * decode: cache=(k, v), each (B, S, K, Dh); the new k/v are written
          in place at min(cache_index, S - Sq), as JAX's
          dynamic_update_slice clamps, and attention runs over the first
@@ -128,8 +131,13 @@ def gqa_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """
     ct = torch_dtype(cfg.compute_dtype)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(ct))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(ct))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(ct))
+    src = x if kv_source is None else kv_source
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(ct))
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(ct))
+    if kv_source is not None:
+        out = kops.attention(q, k, v, causal=False, block_q=cfg.attn_block_q,
+                             block_kv=cfg.attn_block_kv)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(ct)), None
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     if cache is None:

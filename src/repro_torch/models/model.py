@@ -1,6 +1,6 @@
 """Model assembly: init / forward / loss / prefill / decode.
 
-The port's counterpart of `repro.models.model` for four families:
+The port's counterpart of `repro.models.model`, for all six families:
 
   dense  : [GQA attention + SwiGLU] blocks with pre-RMSNorm; trained,
            prefilled and decoded.
@@ -11,9 +11,18 @@ The port's counterpart of `repro.models.model` for four families:
            multi-head latent attention (`layers.mla_fwd`) in place of GQA.
   ssm    : xLSTM, groups of one sLSTM block and `slstm_every - 1` mLSTM
            blocks (`models/ssm.py`); trained, prefilled and decoded.
+  vlm    : the dense stack behind a `patch_proj` prefix: the patch
+           embeddings (`extra`, from the stub frontend) are projected and
+           put before the embedded text, positions run over both, and the
+           patch rows are dropped before the unembedding.
   hybrid : a Mamba-2 stack with one *shared-weight* GQA+SwiGLU block
            applied every `attn_every` layers (Zamba-style); trained,
            prefilled and decoded.
+  audio  : encoder-decoder.  `enc_layers` are dense blocks run non-causally
+           over the frame embeddings (`extra`), then `ln_enc`; `layers` are
+           decoder blocks: causal self-attention, cross-attention to the
+           encoder's memory (k/v projected from it again at every call, no
+           RoPE), SwiGLU.
 
 Per-layer params are stacked on axis 0 under the reference's keys (xLSTM:
 sLSTM (G, ...) and mLSTM (G, slstm_every - 1, ...) over its G groups), and a
@@ -24,15 +33,14 @@ B, S, kv_lora) and (L, B, S, d_rope)); the hybrid cache is the reference's
 {"mamba": MambaState of (L, ...) stacks, "attn": (k, v)}, each
 (L // attn_every, B, S, K, Dh), one per application of the shared block;
 the xLSTM cache is {"slstm": SLSTMState of (G, ...) stacks, "mlstm":
-MLSTMState of (G, slstm_every - 1, ...) stacks}, O(1) in the sequence.
+MLSTMState of (G, slstm_every - 1, ...) stacks}, O(1) in the sequence;
+the audio cache is {"self": (k, v), each (L, B, S, K, Dh), of the decoder's
+self-attention, "enc": the encoder's memory (B, enc_len, d_model)}.
 `decode_step` writes each layer's new row and state into them in place.
-
-Other families raise `NotImplementedError` naming the ROADMAP item (queue 1)
-that ports them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -40,19 +48,11 @@ from torch.utils.checkpoint import checkpoint
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig, torch_dtype
-from .layers import (embed, gqa_fwd, init_embedding, init_gqa, init_mla,
+from .layers import (_init, embed, gqa_fwd, init_embedding, init_gqa, init_mla,
                      init_rmsnorm, init_swiglu, mla_fwd, rmsnorm, swiglu_fwd,
                      unembed)
 
 Params = Dict[str, Any]
-
-
-def check_family(cfg: ModelConfig) -> None:
-    """Raise unless cfg is a dense or MoE model (GQA or MLA), an xLSTM or a
-    hybrid Mamba-2 one."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}) is not ported yet: "
-                                  "ROADMAP queue 1, VLM and audio")
 
 
 def _remat(fn, cfg: ModelConfig):
@@ -102,8 +102,8 @@ def _block_fwd(p: Params, x, cfg: ModelConfig, *, positions, cache=None,
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     """Random params from a seeded `torch.Generator` on `device`, with the
     reference's keys and shapes.  The numbers differ from `jax.random`'s;
-    tests carry JAX params over with `convert.from_jax_params`."""
-    check_family(cfg)
+    tests carry JAX params over with `convert.from_jax_params`.  An unknown
+    family raises the reference's `ValueError`."""
     device = torch.device(device)
     gen = None  # the meta device has no generator: shapes only
     if device.type != "meta":
@@ -119,12 +119,20 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
         G, n_m = _xlstm_groups(cfg)
         p["slstm"] = ssm_mod.init_slstm(gen, cfg, lead=(G,))
         p["mlstm"] = ssm_mod.init_mlstm(gen, cfg, lead=(G, n_m))
-    else:
+    elif cfg.family == "audio":
+        p["enc_layers"] = _init_block(gen, cfg, device, lead=(cfg.n_enc_layers,))
+        p["layers"] = _init_dec_block(gen, cfg, device, lead=(cfg.n_layers,))
+        p["ln_enc"] = init_rmsnorm(d, dt, device)
+    elif cfg.family in ("dense", "moe", "vlm"):
         n_pre = _n_pre(cfg)
         if n_pre:
             p["pre_layers"] = _init_block(gen, cfg, device, lead=(n_pre,))
         p["layers"] = _init_block(gen, cfg, device, lead=(cfg.n_layers - n_pre,),
                                   moe_layer=cfg.moe is not None)
+    else:
+        raise ValueError(cfg.family)
+    if cfg.family == "vlm" and cfg.n_patches:
+        p["patch_proj"] = _init(gen, (d, d), d ** -0.5, dt)
     return p
 
 
@@ -157,6 +165,63 @@ def _init_block(gen, cfg: ModelConfig, device, lead=(), moe_layer=False) -> Para
     return p
 
 
+def _init_dec_block(gen, cfg: ModelConfig, device, lead=()) -> Params:
+    """An audio decoder block: self-attention, cross-attention, SwiGLU, each
+    behind its RMSNorm."""
+    dt = torch_dtype(cfg.param_dtype)
+    d = cfg.d_model
+    return {
+        "ln1": init_rmsnorm(d, dt, device, lead=lead),
+        "ln_x": init_rmsnorm(d, dt, device, lead=lead),
+        "ln2": init_rmsnorm(d, dt, device, lead=lead),
+        "attn": init_gqa(gen, cfg, lead=lead),
+        "xattn": init_gqa(gen, cfg, lead=lead),
+        "ffn": init_swiglu(gen, d, cfg.d_ff, dt, lead=lead),
+    }
+
+
+def _dec_block_fwd(p: Params, x, enc, cfg: ModelConfig, *, positions, cache=None,
+                   cache_index=None, return_kv=False):
+    """One decoder block: causal self-attention (against `cache` in decode;
+    with return_kv its new (k, v) come back), cross-attention over the
+    encoder's memory `enc`, SwiGLU.  Returns (x, self-attention cache or
+    None)."""
+    h, new_self = gqa_fwd(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
+                          positions=positions, cache=cache, cache_index=cache_index,
+                          causal=True, return_kv=return_kv)
+    x = x + h
+    h, _ = gqa_fwd(p["xattn"], rmsnorm(p["ln_x"], x, cfg.norm_eps), cfg,
+                   positions=positions, kv_source=enc)
+    x = x + h
+    h = swiglu_fwd(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.compute_dtype)
+    return x + h, new_self
+
+
+def _patches(params: Params, extra, cfg: ModelConfig):
+    """A VLM's patch embeddings (B, P, d) projected by `patch_proj`, in the
+    compute dtype: the rows put before the embedded text."""
+    ct = torch_dtype(cfg.compute_dtype)
+    return torch.einsum("bpd,de->bpe", extra.to(ct), params["patch_proj"].to(ct))
+
+
+def _encode(params: Params, extra, cfg: ModelConfig, remat: bool = True):
+    """The audio encoder: the frame embeddings (B, enc_len, d) through the
+    non-causal `enc_layers` at positions 0..enc_len-1 (each block
+    checkpointed as cfg.remat says, when `remat`), then `ln_enc`."""
+    enc = extra.to(torch_dtype(cfg.compute_dtype))
+    e_pos = _positions(enc.shape[0], 0, enc.shape[1], enc.device)
+    stack = params["enc_layers"]
+
+    def body(h, i):
+        return _block_fwd(_layer(stack, i), h, cfg, positions=e_pos, causal=False)[0]
+
+    if remat:
+        body = _remat(body, cfg)
+    for i in range(_n_layers(stack)):
+        enc = body(enc, i)
+    return rmsnorm(params["ln_enc"], enc, cfg.norm_eps)
+
+
 def _stacks(params: Params):
     """The dense and MoE block stacks in the order they run: `pre_layers`
     (when the model has them), then `layers`."""
@@ -187,26 +252,44 @@ def _hybrid_join(cfg: ModelConfig, body, tail):
 class TrainBatch(NamedTuple):
     tokens: torch.Tensor                   # (B, S) inputs
     labels: torch.Tensor                   # (B, S) next-token targets
+    extra: Optional[torch.Tensor] = None   # vlm patches / audio frames (B, P, d)
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, padded_vocab).  Layers (dense, MoE),
-    groups and their mLSTM blocks (xLSTM) or groups and tail layers
-    (hybrid) are checkpointed as cfg.remat says."""
-    return _forward(params, tokens, cfg)[0]
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, padded_vocab); `extra` is a VLM's
+    patch embeddings (optional) or an audio model's frame embeddings.
+    Layers (dense, MoE, VLM, both audio stacks), groups and their mLSTM
+    blocks (xLSTM) or groups and tail layers (hybrid) are checkpointed as
+    cfg.remat says."""
+    return _forward(params, tokens, cfg, extra)[0]
 
 
-def _forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
+def _forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+             extra: Optional[torch.Tensor] = None):
     """`forward`, with the aux loss summed over the MoE blocks: (logits,
     aux f32 scalar, 0 for the other families)."""
-    check_family(cfg)
     x = embed(params["embed"], tokens, cfg)
-    positions = _positions(tokens.shape[0], 0, tokens.shape[1], tokens.device)
+    n_patch = 0
+    if cfg.family == "vlm" and extra is not None:
+        x = torch.cat([_patches(params, extra, cfg), x], dim=1)
+        n_patch = extra.shape[1]
+    positions = _positions(x.shape[0], 0, x.shape[1], tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     if cfg.family == "hybrid":
         x = _hybrid_forward(params, x, positions, cfg)
     elif cfg.family == "ssm":
         x = _xlstm_forward(params, x, cfg)
+    elif cfg.family == "audio":
+        enc = _encode(params, extra, cfg)
+        stack = params["layers"]
+
+        def dec_body(h, i, enc):
+            return _dec_block_fwd(_layer(stack, i), h, enc, cfg, positions=positions)[0]
+
+        dec_body = _remat(dec_body, cfg)
+        for i in range(_n_layers(stack)):
+            x = dec_body(x, i, enc)
     else:
         for name in _stacks(params):
             def body(h, i, stack=params[name]):
@@ -217,7 +300,7 @@ def _forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
                 x, a = body(x, i)
                 aux = aux + a
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return unembed(params["embed"], x, cfg), aux
+    return unembed(params["embed"], x[:, n_patch:], cfg), aux
 
 
 def _hybrid_forward(params: Params, x, positions, cfg: ModelConfig):
@@ -277,7 +360,7 @@ def loss_fn(params: Params, batch: TrainBatch, cfg: ModelConfig,
     """Next-token cross-entropy over the padded vocab, plus a 1e-4 z-loss
     and `aux_coef` times the MoE blocks' summed aux loss (0 for the other
     families).  Returns (loss, {"nll", "aux", "zloss"}), all f32 scalars."""
-    logits, aux = _forward(params, batch.tokens, cfg)
+    logits, aux = _forward(params, batch.tokens, cfg, batch.extra)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     # the gold logit by gather: the same value as the reference's masked
@@ -298,8 +381,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     L layers, "attn": (k, v)}, each (L // attn_every, B, max_seq, K, Dh);
     xLSTM {"slstm": SLSTMState stacked over the G groups, "mlstm":
     MLSTMState stacked (G, slstm_every - 1)}, zero but the stabilizers
-    (-1e30), whatever max_seq."""
-    check_family(cfg)
+    (-1e30), whatever max_seq; audio {"self": (k, v), each (L, B, max_seq,
+    K, Dh), "enc": (B, enc_len, d_model)}.  An unknown family raises the
+    reference's `ValueError`."""
     ct = torch_dtype(cfg.compute_dtype)
 
     def kv(n):
@@ -320,6 +404,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
         return {"slstm": ssm_mod.SLSTMState(*(t.expand(G, *t.shape).clone() for t in s_st)),
                 "mlstm": ssm_mod.MLSTMState(*(t.expand(G, n_m, *t.shape).clone()
                                               for t in m_st))}
+    if cfg.family == "audio":
+        return {"self": kv(cfg.n_layers),
+                "enc": torch.zeros((batch, cfg.enc_len, cfg.d_model), dtype=ct,
+                                   device=device)}
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(cfg.family)
     n_pre = _n_pre(cfg)
     out = {"layers": kv(cfg.n_layers - n_pre)}
     if n_pre:
@@ -331,14 +421,20 @@ def decode_step(params: Params, cache, tokens: torch.Tensor, pos: int,
                 cfg: ModelConfig):
     """One token for every sequence.  tokens: (B, 1); pos: the cache index
     it is written at (unused by xLSTM).  Updates cache in place; returns
-    (logits (B, V), cache)."""
-    check_family(cfg)
+    (logits (B, V), cache).  An audio model's decoder attends to
+    cache["enc"], which the step leaves as it is."""
     x = embed(params["embed"], tokens, cfg)
     positions = _positions(x.shape[0], pos, 1, x.device)
     if cfg.family == "hybrid":
         x = _hybrid_decode(params, cache, x, positions, pos, cfg)
     elif cfg.family == "ssm":
         x = _xlstm_decode(params, cache, x, cfg)
+    elif cfg.family == "audio":
+        ck, cv = cache["self"]
+        for i in range(_n_layers(params["layers"])):
+            x, _ = _dec_block_fwd(_layer(params["layers"], i), x, cache["enc"], cfg,
+                                  positions=positions, cache=(ck[i], cv[i]),
+                                  cache_index=pos)
     else:
         for name in _stacks(params):
             ck, cv = cache[name]
@@ -399,18 +495,33 @@ def _shared_block_after(cfg: ModelConfig, i: int) -> bool:
 
 
 # ---------------------------------------------------------------- prefill
-def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
+def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            extra: Optional[torch.Tensor] = None):
     """Process a full prompt; returns (last-token logits (B, V), cache), the
-    cache as `init_cache` lays it out, S rows long.  A hybrid (xLSTM) prompt
-    longer than one SSD (mLSTM) chunk must be a multiple of it, as in the
-    reference."""
-    check_family(cfg)
+    cache as `init_cache` lays it out, S rows long.  A VLM given its patch
+    embeddings `extra` (B, P, d) puts them before the text, and its cache
+    is P + S rows long; without them it runs the text alone (as the
+    reference's engine drives it).  An audio model takes its frame
+    embeddings as `extra` and keeps the encoder's memory as cache["enc"].
+    A hybrid (xLSTM) prompt longer than one SSD (mLSTM) chunk must be a
+    multiple of it, as in the reference."""
     x = embed(params["embed"], tokens, cfg)
-    positions = _positions(tokens.shape[0], 0, tokens.shape[1], tokens.device)
+    if cfg.family == "vlm" and extra is not None:
+        x = torch.cat([_patches(params, extra, cfg), x], dim=1)
+    positions = _positions(x.shape[0], 0, x.shape[1], tokens.device)
     if cfg.family == "hybrid":
         x, cache = _hybrid_prefill(params, x, positions, cfg)
     elif cfg.family == "ssm":
         x, cache = _xlstm_prefill(params, x, cfg)
+    elif cfg.family == "audio":
+        enc = _encode(params, extra, cfg, remat=False)
+        ks, vs = [], []
+        for i in range(_n_layers(params["layers"])):
+            x, (k, v) = _dec_block_fwd(_layer(params["layers"], i), x, enc, cfg,
+                                       positions=positions, return_kv=True)
+            ks.append(k)
+            vs.append(v)
+        cache = {"self": (torch.stack(ks), torch.stack(vs)), "enc": enc}
     else:
         cache = {}
         for name in _stacks(params):

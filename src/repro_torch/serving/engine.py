@@ -15,12 +15,17 @@ tokens too.  An MLA model's latents (L, B, S, kv_lora) and (L, B, S,
 d_rope) follow the same rule: under kv_lora prompt tokens only k_rope
 grows, and the first decode step raises on score tensors of S and max_seq
 columns, as the reference's does (a batch must be padded to at least
-kv_lora tokens).
+kv_lora tokens).  The same rule leaves a GQA leaf (L, B, S, K, Dh)
+prompt-long when S is under L, B, K or Dh (internvl2-1b: 24 layers, d_head
+64), and every decode step then overwrites the last prompt row, in both
+packages: pad such a batch to at least that many tokens.
 
 As in the reference, pads are token 0 and prefill and decode attend to them
-(the prompt is not masked), so the port's tokens equal the reference's.
-Recurrent and hybrid models are refused, as the reference refuses them:
-they serve through `models.prefill` and `models.decode_step` directly.
+(the prompt is not masked), so the port's tokens equal the reference's.  A
+VLM serves text alone: the reference's engine passes no patches.
+Recurrent, hybrid and encoder-decoder models are refused, as the reference
+refuses them: they serve through `models.prefill` and `models.decode_step`
+directly.
 """
 from __future__ import annotations
 
@@ -34,7 +39,6 @@ import torch.nn.functional as F
 
 from repro_torch.models import decode_step, prefill
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import check_family
 
 
 @dataclass
@@ -70,7 +74,6 @@ class ServeEngine:
             raise NotImplementedError(
                 "ServeEngine drives attention-family LMs; recurrent archs "
                 "serve via decode_step directly")
-        check_family(cfg)
         self.cfg = cfg
         self.params = params
         self.max_seq = max_seq

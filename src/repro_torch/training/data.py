@@ -20,14 +20,22 @@ def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,
                     step: int = 0, device="cuda") -> TrainBatch:
     """One deterministic batch on `device`: a Markov-ish token stream (not
     uniform noise, so losses move during short trainings).  Tokens and
-    labels are int64."""
+    labels are int64.  A VLM's patch embeddings (B, n_patches, d) and an
+    audio model's frame embeddings (B, enc_len, d) are `extra`, drawn after
+    the tokens from the same generator as in the reference: N(0, 1) * 0.02
+    in float64, cast to float32."""
     rng = np.random.default_rng((seed * 1_000_003 + step) % (2 ** 63))
     base = rng.integers(0, cfg.vocab, size=(batch, 1), dtype=np.int64)
     drift = rng.integers(-32, 33, size=(batch, seq + 1), dtype=np.int64)
     toks = np.abs(base + np.cumsum(drift, axis=1)) % cfg.vocab
     tokens = torch.from_numpy(np.ascontiguousarray(toks[:, :-1])).to(device)
     labels = torch.from_numpy(np.ascontiguousarray(toks[:, 1:])).to(device)
-    return TrainBatch(tokens=tokens, labels=labels)
+    extra = None
+    rows = {"vlm": cfg.n_patches, "audio": cfg.enc_len}.get(cfg.family)
+    if rows is not None:
+        e = rng.standard_normal((batch, rows, cfg.d_model)) * 0.02
+        extra = torch.from_numpy(e.astype(np.float32)).to(device)
+    return TrainBatch(tokens=tokens, labels=labels, extra=extra)
 
 
 def stream(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,

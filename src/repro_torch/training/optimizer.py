@@ -21,8 +21,11 @@ Tree = Dict[str, Any]
 
 # `update` holds about five f32 temporaries of the leaf it updates; a leaf
 # larger than this (an MoE model's stacked experts: 8 layers of olmoe's w1
-# are 1.07e9 elements, 4.3 GB in f32) is updated one slice of its leading
-# (layer) axis at a time, the same elementwise arithmetic
+# are 1.07e9 elements, 4.3 GB in f32; seamless-m4t-medium's 256,256-row
+# embedding, 2.6e8) is updated a block of leading-axis slices at a time,
+# each block of at most this many elements (at least one slice), the same
+# elementwise arithmetic.  One slice at a time would be one update per
+# embedding row: 5e5 rows, 1e7 launches, over 100 s a step on the card.
 UPDATE_SLICE_ELEMS = SLICE_ELEMS
 
 
@@ -92,7 +95,13 @@ class AdamW(NamedTuple):
 
         def upd(g, m, v, p):
             if p.dim() > 1 and p.numel() > UPDATE_SLICE_ELEMS:
-                for parts in zip(g, m, v, p):     # views along axis 0
+                rows = UPDATE_SLICE_ELEMS // math.prod(p.shape[1:])
+                if rows <= 1:                         # views along axis 0
+                    blocks = zip(g, m, v, p)
+                else:
+                    blocks = ((t[i:i + rows] for t in (g, m, v, p))
+                              for i in range(0, p.shape[0], rows))
+                for parts in blocks:
                     upd(*parts)
                 return p
             g = g.float() * scale

@@ -77,14 +77,16 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, microbatches: int = 1,
         if microbatches == 1:
             loss, metrics, grads = grads_of(params, batch)
         else:
-            def split(x):
+            def split(x):  # None (no extra) stays None, as jax.tree.map skips it
+                if x is None:
+                    return None
                 return x.reshape(microbatches, x.shape[0] // microbatches, *x.shape[1:])
             parts = TrainBatch(*(split(x) for x in batch))
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                    device=p.device), params)
             loss = torch.zeros((), dtype=torch.float32, device=batch.tokens.device)
             for i in range(microbatches):
-                mb = TrainBatch(*(x[i] for x in parts))
+                mb = TrainBatch(*(None if x is None else x[i] for x in parts))
                 l_i, metrics, g_i = grads_of(params, mb)
                 loss = loss + l_i
                 tree_map(lambda a, g: a.add_(g), grads, g_i)

@@ -865,3 +865,109 @@ def test_mla_layer_bf16_on_the_card(cuda, width):
     assert max(rel.values()) <= 2e-2, rel
     assert tuple(a - b for a, b in zip(_launch_counts(), n0)) == (1, 0, 0, 0, 0)
     assert fa.flash_attention.mla_launches - m0 == 1
+
+
+# ------------------------------------------------ VLM and audio (internvl2, seamless)
+VL_ATTENTION = [  # (B, S, H, K): internvl2-1b's 14 heads over 2 (G = 7) and
+    (8, 512, 14, 2),   # seamless-m4t-medium's 16 = 16, D 64 each, at chip_smoke's
+    (8, 256, 16, 16),  # phase 23 / 24 prefills, and a ragged tail tile at G = 7
+    (2, 200, 14, 2),
+]
+
+
+@pytest.mark.parametrize("B,S,H,K", VL_ATTENTION)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_the_vlm_and_audio_heads(cuda, B, S, H, K, dtype):
+    rng = np.random.default_rng(11)
+    q, k, v = (_rnd(rng, (B, S, n, 64), dtype, cuda) for n in (H, K, K))
+    n0 = fa.flash_attention.launches
+    o = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
+    assert o.dtype == dtype and o.shape == (B, S, H, 64)
+    assert _err(o, ref) < TOL[dtype]
+
+
+@pytest.mark.parametrize("B,S,H,K,vl", [
+    (8, 576, 14, 2, 513),   # G = 7: the 8-slot variant with one slot idle
+    (8, 576, 14, 2, 575),
+    (8, 320, 16, 16, 257),  # G = 1
+    (8, 320, 16, 16, 319),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_at_the_vlm_and_audio_heads(cuda, B, S, H, K, vl, dtype):
+    rng = np.random.default_rng(12)
+    q = _rnd(rng, (B, 1, H, 64), dtype, cuda)
+    k, v = _rnd(rng, (B, S, K, 64), dtype, cuda), _rnd(rng, (B, S, K, 64), dtype, cuda)
+    n0 = fd.flash_decode.launches
+    o = fd.flash_decode(q, k, v, vl)
+    torch.cuda.synchronize()
+    assert fd.flash_decode.launches == n0 + 1
+    ref = fd.flash_decode_plain(q.float(), k.float(), v.float(), vl)
+    assert o.dtype == dtype and _err(o, ref) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_at_internvls_training_shape(cuda, dtype):
+    """One 2,048-row microbatch (256 patches + 1,792 text tokens) at 14
+    heads over 2: dq, dk, dv within tolerance of the plain backward."""
+    rng = np.random.default_rng(13)
+    q, k, v, do = (_rnd(rng, (1, 2048, n, 64), dtype, cuda) for n in (14, 2, 2, 14))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True, scale=0.125)
+    n0 = fa._launch_bwd.launches
+    got = fa._launch_bwd(q, k, v, o, lse, do, causal=True, scale=0.125)
+    torch.cuda.synchronize()
+    assert fa._launch_bwd.launches == n0 + 1
+    ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(),
+                                       causal=True, scale=0.125)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert _rel(g, r) < TOL[dtype], (name, _rel(g, r))
+
+
+@pytest.mark.parametrize("arch", ["internvl2_1b", "seamless_m4t_medium"])
+def test_vlm_and_audio_reduced_serving_on_the_card(cuda, arch):
+    """Reduced internvl2-1b (8 patches) and seamless-m4t-medium (32
+    frames) in f32 on the card against the same seeded params on the CPU:
+    a prefill with `extra` over 2 x 48 text tokens (logits and every cache
+    leaf within 1e-4), the self-attention leaves grown by 6 rows, 6 greedy
+    decode steps (logits within 1e-4, tokens equal) and the leaves after
+    them.  Launches: flash_attention once a layer in prefill, flash_decode
+    once a layer a step; the encoder and cross-attention none."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.training import synthetic_batch
+
+    cfg = reduced(arch)
+    params = init_params(cfg, seed=0, device="cpu")
+    batch = synthetic_batch(cfg, 2, 48, seed=6, device="cpu")
+    name = "layers" if cfg.family == "vlm" else "self"
+    rows = 48 + (cfg.n_patches if cfg.family == "vlm" else 0)
+
+    def leaves(cache):
+        return [t.cpu().clone() for leaf in cache.values()
+                for t in (leaf if isinstance(leaf, tuple) else (leaf,))]
+    out = {}
+    n0 = _launch_counts()
+    for dev, p in (("cpu", params), ("cuda", _to(params, "cuda"))):
+        logits, cache = prefill(p, batch.tokens.to(dev), cfg, extra=batch.extra.to(dev))
+        pre = (logits.cpu(), leaves(cache))
+        cache[name] = tuple(F.pad(c, (0, 0, 0, 0, 0, 6)) for c in cache[name])
+        tok, steps = logits.argmax(-1), []
+        for i in range(6):
+            logits, cache = decode_step(p, cache, tok[:, None], rows + i, cfg)
+            tok = logits.argmax(-1)
+            steps.append((logits.cpu(), tok.tolist()))
+        out[dev] = pre, steps, leaves(cache)
+    torch.cuda.synchronize()
+    (cl, cc), cs, cfinal = out["cpu"]
+    (gl, gc), gs, gfinal = out["cuda"]
+    assert _err(gl, cl) < 1e-4
+    for g, c in zip(gc + gfinal, cc + cfinal, strict=True):
+        torch.testing.assert_close(g, c, atol=1e-4, rtol=1e-4)
+    for (g, gt), (c, ct) in zip(gs, cs, strict=True):
+        assert gt == ct and _err(g, c) < 1e-4
+    L = cfg.n_layers
+    assert tuple(a - b for a, b in zip(_launch_counts(), n0)) == (L, 0, 6 * L, 0, 0)

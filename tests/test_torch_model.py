@@ -241,33 +241,29 @@ def test_from_jax_params_widens_bf16_exactly():
 
 @pytest.mark.parametrize("arch", ["olmoe_1b_7b", "deepseek_v2_236b", "xlstm_350m",
                                   "zamba2_1p2b", "internvl2_1b", "seamless_m4t_medium"])
-def test_unported_families_raise(arch):
+def test_every_family_has_the_reference_tree(arch):
+    """Every family is ported: the port's key tree and shapes equal
+    `jax.eval_shape` of the reference's `init_params` (xLSTM: its nested
+    (G, n_m, ...) mLSTM stacks; deepseek-v2: MLA's projections; internvl2:
+    `patch_proj`; seamless: `enc_layers`, decoder `layers` with `xattn`
+    and `ln_x`, and `ln_enc`).  `ServeEngine` takes the attention families
+    (dense, MoE, VLM) and refuses the others with the reference's reason
+    (its engine refuses them too): they serve through prefill /
+    decode_step."""
     from repro_torch.serving import ServeEngine
     cfg = reduced(arch)
-    if cfg.family in ("hybrid", "ssm"):
-        # trains and serves through prefill / decode_step; the engine refuses
-        # it, with the reference's reason (its engine refuses it too)
-        params = init_params(cfg, device="cpu")
+    params = init_params(cfg, device="cpu")
+    jshapes = jax.eval_shape(lambda k: jmodel.init_params(k, jreduced(arch)),
+                             jax.random.PRNGKey(0))
+    jflat = jax.tree_util.tree_flatten_with_path(jshapes)[0]
+    tflat = jax.tree_util.tree_flatten_with_path(params)[0]
+    assert [(p, tuple(a.shape)) for p, a in jflat] == \
+        [(p, tuple(t.shape)) for p, t in tflat]
+    if cfg.family in ("moe", "vlm"):
+        ServeEngine(cfg, params, device="cpu")
+    else:
         with pytest.raises(NotImplementedError, match="attention-family"):
             ServeEngine(cfg, params, device="cpu")
-        if cfg.family == "hybrid":
-            return
-    if arch in ("olmoe_1b_7b", "deepseek_v2_236b", "xlstm_350m"):
-        # ported: the reference's key tree and shapes (xLSTM: its nested
-        # (G, n_m, ...) mLSTM stacks; deepseek-v2: MLA's projections), and
-        # the engine takes the MoE models
-        params = init_params(cfg, device="cpu")
-        jshapes = jax.eval_shape(lambda k: jmodel.init_params(k, jreduced(arch)),
-                                 jax.random.PRNGKey(0))
-        jflat = jax.tree_util.tree_flatten_with_path(jshapes)[0]
-        tflat = jax.tree_util.tree_flatten_with_path(params)[0]
-        assert [(p, tuple(a.shape)) for p, a in jflat] == \
-            [(p, tuple(t.shape)) for p, t in tflat]
-        if cfg.family == "moe":
-            ServeEngine(cfg, params, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, VLM and audio"):
-        init_params(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("shape", [(5, 3, 4), (7, 6)])

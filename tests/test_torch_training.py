@@ -267,7 +267,8 @@ def test_synthetic_batch_matches_jax(arch, step):
     tb = synthetic_batch(reduced(arch), 3, 40, seed=5, step=step, device="cpu")
     assert np.array_equal(np.asarray(jb.tokens), tb.tokens.numpy())
     assert np.array_equal(np.asarray(jb.labels), tb.labels.numpy())
-    assert tb._fields == ("tokens", "labels") and tb.tokens.dtype == torch.int64
+    assert tb._fields == ("tokens", "labels", "extra") and tb.tokens.dtype == torch.int64
+    assert tb.extra is None and jb.extra is None
     nxt = next(stream(reduced(arch), 3, 40, seed=5, start_step=step + 1, device="cpu"))
     jnxt = jsynthetic_batch(jreduced(arch), 3, 40, seed=5, step=step + 1)
     assert np.array_equal(np.asarray(jnxt.tokens), nxt.tokens.numpy())
@@ -380,6 +381,36 @@ def test_train_step_kernel_calls_match_chip_smokes_count(rigs, monkeypatch, rema
     want = _chip_smoke().train_launches(cfg, microbatches=2)
     assert calls == {k: want[k] for k in calls}
     assert want["ssd_scan_bwd"] == 2 * 5 and want["flash_attention_bwd"] == 2 * 2
+
+
+@pytest.mark.parametrize("shape,blocks", [((7, 6), 3), ((2, 30), 2), ((40, 1), 2)])
+def test_adamw_updates_a_long_leaf_a_block_of_rows_at_a_time(monkeypatch, shape, blocks):
+    """Above UPDATE_SLICE_ELEMS (lowered here to 20) a leaf is updated a
+    block of leading-axis slices of at most 20 elements at a time (a row
+    over 20 alone, then its own slices), not one row at a time: a 151,680-
+    or 256,256-row embedding in two blocks, not in one update a row.  Bit
+    for bit the whole-leaf update."""
+    from repro_torch.training import optimizer
+    g = torch.Generator().manual_seed(1)
+    params = {"w": torch.randn(shape, generator=g)}
+    grads = {"w": torch.randn(shape, generator=g)}
+    opt = AdamW(lr=1e-3, warmup=1, total_steps=4)
+    out, calls = [], []
+    sqrt = torch.sqrt
+
+    def counted(x):
+        calls[-1] += 1
+        return sqrt(x)
+    monkeypatch.setattr(torch, "sqrt", counted)
+    for limit in (1 << 30, 20):
+        monkeypatch.setattr(optimizer, "UPDATE_SLICE_ELEMS", limit)
+        p = {k: v.clone() for k, v in params.items()}
+        state = opt.init(p)
+        calls.append(0)
+        p, state, gnorm = opt.update(grads, state, p)
+        out.append((p["w"], state.m["w"], state.v["w"]))
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+    assert calls == [1 + 1, 1 + blocks]     # the global norm, then each update
 
 
 def test_adamw_updates_a_large_leaf_slice_by_slice_bit_for_bit(monkeypatch):
