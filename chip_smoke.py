@@ -55,7 +55,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                 (H = K = 16, D 64): phase 23's and 24's prefills and decodes
                 at their first and last valid lengths, a ragged prefill, and
                 phase 25's attention forward and backward of a microbatch
-                (1 x 2048 and 4 x 1024).  Tolerance: 1e-4 in f32 and 2e-2
+                (1 x 2048 and 4 x 1024); the attention backward's Dv != D
+                instances (MLA's training) in both dtypes at phase 27's 2 x
+                512 tokens of deepseek-v2-236b's 128 heads of 192 / 128 and
+                at phase 26's reduced 2 x 64 (4 heads of 48 / 32), timed
+                beside SDPA's backward on its default backend.  Tolerance: 1e-4 in f32 and 2e-2
                 in bf16 against the plain version computed in f32 (the
                 attention forward absolute, the SSD scan and the backward
                 kernels relative to the largest reference magnitude).  Each
@@ -293,10 +297,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                 ln(vocab)) and grad norms, and that 3 steps on one batch
                 lower its loss.  Prints step seconds, tokens/s and peak
                 memory.
+  26. MLA train parity -- reduced deepseek-v2 on the card against the CPU:
+                one f32 train step (loss, grad norm, params within 1e-4),
+                then bf16 layer by layer (every reduced block's MLA and one
+                at deepseek-v2-236b's widths, forward and backward from the
+                same inputs: out and every gradient within 2e-2 of the
+                largest magnitude; whole-model bf16 also measures MoE
+                routing flips, phase 20).  Asserts the Dv != D forward and
+                backward launches, nothing else.
+  27. MLA train -- `launch.train.main --arch deepseek-v2-236b --layers 2
+                --microbatches 1`: full width, the dense first block and
+                one MoE block (5.36e9 params), bf16, remat "full", 3 steps
+                of 2 x 512.  Prints step seconds, tokens/s, peak memory, the
+                losses and the (192, 128) instances' launches; asserts
+                finite losses (the first near ln(vocab)) and that every
+                layer's attention launched the Dv != D forward (twice, under
+                remat) and backward, and nothing else launched.
+  28. dry run -- `launch.dryrun` cells traced in this process on the `fake`
+                process-group backend over fake tensors, no card:
+                deepseek-v2-236b's train_4k at full width on 16 x 16, depth
+                cut to 2, and the reduced olmoe-1b-7b train cell on 4 x 2.
+                Prints per-device argument, output and peak bytes, FLOPs and
+                collectives (counts from a trace); fails unless both trace.
   8. a JSON line {"decision_sweep": [...]} (phase 12's rows), a JSON line
      {"campaign_sweep": [...]} (phase 16's), then a JSON line {"kernels":
      [...]} with each kernel's launches in phases 5, 7, 9, 10, 11, 14, 15,
-     16, 18, 19, 21, 23, 24 and 25 and its numbers at its main path's
+     16, 18, 19, 21, 23, 24, 25 and 27 and its numbers at its main path's
      shapes.
   last, the line {"ok": true, "device": {...}}.
 
@@ -433,6 +459,21 @@ MLA_MAX_SEQ = MLA_PROMPT[1] + MLA_NEW
 # d_rope = 192 and Dv = d_v = 128, and its reduced sibling's 4 of 48 / 32
 MLA_ATTN = dict(H=128, K=128, D=192, Dv=128)
 MLA_ATTN_REDUCED = dict(H=4, K=4, D=48, Dv=32)
+# Phase 26's: the reduced deepseek-v2 train step from 2 x 64 tokens, and
+# its bf16 MLA layers' gradients at 2 x 64.  Phase 27's: deepseek-v2-236b
+# trained at full width, cut to MLA_TRAIN_LAYERS layers (the dense first
+# block and one MoE block, about 5.36e9 params: at 12 B a param for bf16
+# params and grads and f32 AdamW moments, 64.3 GB), one microbatch (more
+# would add f32 grad accumulators, 4 B a param, past the card's 80 GB),
+# MLA_TRAIN_STEPS steps of MLA_TRAIN_BATCH x MLA_TRAIN_SEQ tokens
+MLA_TRAIN_LAYERS = 2
+MLA_TRAIN_STEPS = 3
+MLA_TRAIN_BATCH, MLA_TRAIN_SEQ = 2, 512
+# Phase 28's: deepseek-v2-236b's train_4k dry-run cell at full width on the
+# 16 x 16 production mesh, depth cut to DRYRUN_LAYERS (its 60 layers trace
+# in about 600 s of one CPU core), and the reduced olmoe-1b-7b train cell
+# of tests/test_runtime.py (two microbatches, expert-parallel MoE) on 4 x 2
+DRYRUN_LAYERS = 2
 # Phase 22's: reduced internvl2-1b (8 patches) and seamless-m4t-medium (32
 # frames) on the card against the CPU, 2 x VL_PARITY_TEXT text tokens and
 # VL_PARITY_NEW greedy tokens.  Phase 23's: internvl2-1b at full width and
@@ -808,7 +849,7 @@ def full_width_serve(torch, fa, fd):
             "--min-prompt-len", "384", "--max-new", "64", "--max-seq", "1024",
             "--dtype", "bfloat16"]
     fa.flash_attention.launches = 0
-    fa.flash_attention.mla_launches = 0
+    fa.flash_attention.mla_launches = fa._launch_bwd.mla_launches = 0
     fd.flash_decode.launches = 0
     stats = serve_main(argv)
     launches = {"flash_attention": fa.flash_attention.launches,
@@ -917,6 +958,13 @@ def training_kernel_cases(torch, F, fa, ssd, clock):
     audio_fa = [dict(B=4, S=AUDIO_TRAIN_SEQ, **AUDIO_HEADS)]
     g_vl = torch.Generator(device="cuda")
     g_vl.manual_seed(4)
+    # MLA's training (Dv != D), in both dtypes: phase 27's microbatch at
+    # deepseek-v2-236b's 128 heads of 192 / 128, and phase 26's reduced
+    # train step (4 heads of 48 / 32); from a generator of their own
+    mla_fa = [dict(MLA_ATTN, B=MLA_TRAIN_BATCH, S=MLA_TRAIN_SEQ),
+              dict(MLA_ATTN_REDUCED, B=2, S=64)]
+    g_mla = torch.Generator(device="cuda")
+    g_mla.manual_seed(5)
     for dtn in ("bfloat16", "float32"):
         dt = getattr(torch, dtn)
         bf16 = dtn == "bfloat16"
@@ -1021,12 +1069,14 @@ def training_kernel_cases(torch, F, fa, ssd, clock):
                                  f"{TOL[dtn]}")
         del got, refs
         for c in fa_shapes + (live_fa + moe_fa if bf16 else quick_fa) + vlm_fa + \
-                (audio_fa if bf16 else []):
+                (audio_fa if bf16 else []) + mla_fa:
             B, S, H, K, D = (c[k] for k in ("B", "S", "H", "K", "D"))
+            Dv = c.get("Dv", D)
             scale = 1.0 / math.sqrt(D)
-            gen = g_vl if c in vlm_fa + audio_fa else g
-            q, k, v = (rnd((B, S, n, D), dt, gen=gen) for n in (H, K, K))
-            do = rnd((B, S, H, D), dt, gen=gen)
+            gen = g_mla if c in mla_fa else g_vl if c in vlm_fa + audio_fa else g
+            q, k = (rnd((B, S, n, D), dt, gen=gen) for n in (H, K))
+            v = rnd((B, S, K, Dv), dt, gen=gen)
+            do = rnd((B, S, H, Dv), dt, gen=gen)
             o, lse = fa.flash_attention_fwd(q, k, v, causal=True, scale=scale)
             got = fa._launch_bwd(q, k, v, o, lse, do, causal=True, scale=scale)
             refs = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(),
@@ -1034,21 +1084,22 @@ def training_kernel_cases(torch, F, fa, ssd, clock):
             torch.cuda.synchronize()
             errs = {n_: (float((a.float() - r).abs().max()), _rel_err(a, r))
                     for n_, a, r in zip(("dq", "dk", "dv"), got, refs)}
-            flops, nbytes = attention_cost(B, S, S, H, K, D, D, q.element_size())
-            flops = flops // 2 * 5           # S, dP, dV, dK and dQ over the causal pairs
-            nbytes += q.element_size() * (2 * B * S * H * D + 2 * B * S * K * D) \
-                + 4 * B * H * S              # do, dq read/written; dk, dv; lse
+            flops, nbytes = attention_cost(B, S, S, H, K, D, Dv, q.element_size())
+            # S, dK and dQ over D, dP and dV over Dv, on the causal pairs
+            flops = flops // (D + Dv) * (3 * D + 2 * Dv)
+            nbytes += q.element_size() * (B * S * H * (D + Dv) + B * S * K * (D + Dv)) \
+                + 4 * B * H * S              # do read, dq written; dk, dv; lse
             live = [t.detach().requires_grad_(True) for t in (q, k, v)]
             o_plain = fa.flash_attention_plain(*live, causal=True, scale=scale)
             o_lib = F.scaled_dot_product_attention(
                 *(t.transpose(1, 2) for t in live), is_causal=True, scale=scale,
                 enable_gqa=True).transpose(1, 2)
+            lib = lambda: torch.autograd.grad(o_lib, live, do, retain_graph=True)  # noqa: E731
             rows[("flash_attention_bwd", dtn, tuple(sorted(c.items())))] = _row(
                 torch, clock, "flash_attention_bwd", dtn, c, errs, flops, nbytes,
                 lambda: fa._launch_bwd(q, k, v, o, lse, do, causal=True, scale=scale),
                 lambda: torch.autograd.grad(o_plain, live, do, retain_graph=True),
-                lambda: torch.autograd.grad(o_lib, live, do, retain_graph=True), 10,
-                lib_backward=True)
+                lib, 10, lib_backward=True)
             del o_plain, o_lib, live
     return rows
 
@@ -1085,11 +1136,11 @@ def train_launches(cfg, microbatches: int) -> dict:
 
 
 # ------------------------------------------------------------ 6. train parity
-def train_parity(torch, cfg, tag: str = "train_parity"):
+def train_parity(torch, cfg, tag: str = "train_parity", bf16: bool = True):
     """One train step of the reduced cfg (f32 params and compute) from the
     same seeded params on the card and on the CPU: loss, grad norm and
-    params within 1e-4; then the same step in bf16, loss and grad norm
-    within 2e-2 relative.  Printed under `tag`."""
+    params within 1e-4; then (with bf16) the same step in bf16, loss and
+    grad norm within 2e-2 relative.  Printed under `tag`."""
     from repro_torch.models import init_params
     from repro_torch.training import (AdamW, make_train_state, make_train_step,
                                       synthetic_batch)
@@ -1114,6 +1165,8 @@ def train_parity(torch, cfg, tag: str = "train_parity"):
     if not worst <= 1e-4:
         raise AssertionError(f"reduced {cfg.name} train step differs cuda vs cpu by "
                              f"{worst} > 1e-4")
+    if not bf16:
+        return
 
     # bf16: the tensor-core attention kernels round P and dS to bf16 before
     # their products (the plain versions keep f32), and the bf16 step rounds
@@ -1217,7 +1270,7 @@ def full_width_train(torch, fa, ssd):
                 "ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd._launch_bwd}
     for fn in counters.values():
         fn.launches = 0
-    fa.flash_attention.mla_launches = 0
+    fa.flash_attention.mla_launches = fa._launch_bwd.mla_launches = 0
     stats = train_main(argv)
     launches = {name: fn.launches for name, fn in counters.items()}
     print(json.dumps({"train": stats, "launches": launches}))
@@ -1273,7 +1326,7 @@ def live_seam(torch, fa, fd, ssd):
     jobs = {}
     for fn in counters.values():
         fn.launches = 0
-    fa.flash_attention.mla_launches = 0
+    fa.flash_attention.mla_launches = fa._launch_bwd.mla_launches = 0
     stats = cluster_main(argv, serve_params=serve_params,
                          on_job=lambda job: jobs.__setitem__(job.jid, job))
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -1364,7 +1417,8 @@ def live_seam(torch, fa, fd, ssd):
 def _zeroed_counters(fa, fd, ssd):
     """Set every kernel's launch count to 0; returns a function that reads
     them (the SSD forward's final-state launches as ssd_scan_final_state,
-    flash_attention's Dv != D launches as flash_attention_mla)."""
+    flash_attention's Dv != D launches as flash_attention_mla, and its
+    backward's as flash_attention_bwd_mla)."""
     counters = {"flash_attention": fa.flash_attention, "flash_decode": fd.flash_decode,
                 "ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd._launch_bwd,
                 "flash_attention_bwd": fa._launch_bwd}
@@ -1372,21 +1426,25 @@ def _zeroed_counters(fa, fd, ssd):
         fn.launches = 0
     ssd.ssd_scan.final_state_launches = 0
     fa.flash_attention.mla_launches = 0
+    fa._launch_bwd.mla_launches = 0
 
     def read():
         out = {name: fn.launches for name, fn in counters.items()}
         out["ssd_scan_final_state"] = ssd.ssd_scan.final_state_launches
         out["flash_attention_mla"] = fa.flash_attention.mla_launches
+        out["flash_attention_bwd_mla"] = fa._launch_bwd.mla_launches
         return out
     return read
 
 
 def _no_mla_launches(fa, launches: dict, what: str) -> None:
     """A path that runs no MLA: add flash_attention's Dv != D launches,
-    zeroed with the path's other counts, to `launches`; fail if any."""
+    forward and backward, zeroed with the path's other counts, to
+    `launches`; fail if any."""
     launches["flash_attention_mla"] = fa.flash_attention.mla_launches
-    if launches["flash_attention_mla"]:
-        raise AssertionError(f"{what}: flash_attention launched its Dv != D instance")
+    launches["flash_attention_bwd_mla"] = fa._launch_bwd.mla_launches
+    if launches["flash_attention_mla"] or launches["flash_attention_bwd_mla"]:
+        raise AssertionError(f"{what}: flash_attention launched a Dv != D instance")
 
 
 def full_width_hybrid_serve(torch, fa, fd, ssd):
@@ -1439,7 +1497,8 @@ def full_width_hybrid_serve(torch, fa, fd, ssd):
     n_groups = cfg.n_layers // cfg.attn_every
     expected = {"flash_attention": n_groups, "flash_decode": n_groups * (HYBRID_NEW - 1),
                 "ssd_scan": cfg.n_layers, "ssd_scan_bwd": 0, "flash_attention_bwd": 0,
-                "ssd_scan_final_state": cfg.n_layers, "flash_attention_mla": 0}
+                "ssd_scan_final_state": cfg.n_layers, "flash_attention_mla": 0,
+                "flash_attention_bwd_mla": 0}
     print(f"launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -1562,7 +1621,8 @@ def launchers_on_card(torch, fa, fd, ssd):
     expected = {"flash_attention": cfg.n_layers * QUICK_STEPS + demo.n_layers * len(served),
                 "flash_decode": demo.n_layers * decode_steps, "ssd_scan": 0,
                 "ssd_scan_bwd": 0, "flash_attention_bwd": cfg.n_layers * QUICK_STEPS,
-                "ssd_scan_final_state": 0, "flash_attention_mla": 0}
+                "ssd_scan_final_state": 0, "flash_attention_mla": 0,
+                "flash_attention_bwd_mla": 0}
     print(f"launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -1835,7 +1895,8 @@ def full_width_moe_serve(torch, fa, fd, ssd):
     cfg = get_config("olmoe_1b_7b")
     expected = {"flash_attention": cfg.n_layers, "flash_decode": cfg.n_layers * (MOE_NEW - 1),
                 "ssd_scan": 0, "ssd_scan_bwd": 0, "flash_attention_bwd": 0,
-                "ssd_scan_final_state": 0, "flash_attention_mla": 0}
+                "ssd_scan_final_state": 0, "flash_attention_mla": 0,
+                "flash_attention_bwd_mla": 0}
     print(f"launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -1910,7 +1971,8 @@ def full_width_moe_train(torch, fa, fd, ssd):
     cfg = get_config("olmoe_1b_7b").with_(n_layers=MOE_TRAIN_LAYERS)
     expected = {k: MOE_TRAIN_STEPS * n
                 for k, n in train_launches(cfg, cfg.train_microbatches).items()}
-    expected.update(flash_decode=0, ssd_scan_final_state=0, flash_attention_mla=0)
+    expected.update(flash_decode=0, ssd_scan_final_state=0, flash_attention_mla=0,
+                    flash_attention_bwd_mla=0)
     print(f"launches {launches}, expected {expected} ({MOE_TRAIN_STEPS} steps)")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -2986,6 +3048,165 @@ def full_width_vlm_audio_train(torch, fa, fd, ssd):
     return out
 
 
+# --------------------------------------------------------- 26. MLA train parity
+def mla_layer_grads_cpu_vs_card(torch, p, cfg, seed: int, B: int, S: int) -> dict:
+    """One MLA layer (params p on the CPU) run forward and backward in its
+    training form on the CPU and on the card, from the same seeded input x
+    (B, S, d) and upstream gradient: out, dx and each param's gradient,
+    each as its largest gap over the CPU's largest magnitude."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator().manual_seed(seed)
+    x, dy = (torch.randn((B, S, cfg.d_model), generator=gen).to(p["wo"].dtype)
+             for _ in range(2))
+    pos = torch.arange(S)[None].expand(B, S)
+    names = ["out", "dx", *(f"d{k}" for k in p)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pd = {k: v.to(dev).requires_grad_(True) for k, v in p.items()}
+        xd = x.to(dev).requires_grad_(True)
+        o, _ = layers.mla_fwd(pd, xd, cfg, positions=pos.to(dev))
+        grads = torch.autograd.grad(o, [xd, *pd.values()], dy.to(dev), allow_unused=True)
+        out[dev] = [o.detach().cpu(), *(None if g is None else g.cpu() for g in grads)]
+    return {n: _rel_err(g, c) for n, g, c in zip(names, out["cuda"], out["cpu"], strict=True)
+            if c is not None}
+
+
+def mla_train_parity(torch, fa, fd, ssd):
+    """Reduced deepseek-v2 trained on the card against the CPU: one f32
+    train step (TF32 off) from the same seeded params, loss, grad norm and
+    params within 1e-4 (`train_parity`); then bf16 layer by layer (whole-
+    model bf16 measures MoE routing flips as well, phase 20): every reduced
+    block's MLA and one MLA layer at deepseek-v2-236b's widths, forward and
+    backward from the same inputs on both, out and every gradient within
+    2e-2 of the largest magnitude.  Every attention call launches the
+    Dv != D forward and backward instances ((48, 32), and (192, 128) for
+    the full-width layer); nothing else launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.models import init_params, layers
+    from repro_torch.models.model import _layer
+
+    cfg = reduced("deepseek_v2_236b")
+    counters = _zeroed_counters(fa, fd, ssd)
+    train_parity(torch, cfg, "mla_train_parity", bf16=False)
+    bf = cfg.with_(param_dtype="bfloat16", compute_dtype="bfloat16")
+    bparams = init_params(bf, seed=0, device="cpu")
+    cases = [(f"{name}[{i}]", bf, _layer(bparams[name]["attn"], i))
+             for name in ("pre_layers", "layers")
+             for i in range(bparams[name]["attn"]["wo"].shape[0])]
+    full = get_config("deepseek_v2_236b")
+    cases.append(("full width", full, layers.init_mla(torch.Generator().manual_seed(0), full)))
+    bad = []
+    for seed, (what, c, p) in enumerate(cases):
+        rel = mla_layer_grads_cpu_vs_card(torch, p, c, seed, 2, 64)
+        print(json.dumps({"mla_layer_grads_bf16": {"layer": what, "max_rel_err": rel}}),
+              flush=True)
+        if not max(rel.values()) <= 2e-2:
+            bad.append((what, rel))
+    if bad:
+        raise AssertionError(f"bf16 MLA gradients differ cuda vs cpu by more than 2e-2: {bad}")
+    step = train_launches(cfg, 1)
+    n_fa, n_bwd = step["flash_attention"] + len(cases), step["flash_attention_bwd"] + len(cases)
+    _expect_launches(counters(), "mla train parity", flash_attention=n_fa,
+                     flash_attention_mla=n_fa, flash_attention_bwd=n_bwd,
+                     flash_attention_bwd_mla=n_bwd)
+
+
+# ---------------------------------------------------------- 27. MLA train
+def full_width_mla_train(torch, fa, fd, ssd):
+    """deepseek-v2-236b at full width cut to MLA_TRAIN_LAYERS layers, bf16,
+    remat "full", one microbatch, MLA_TRAIN_STEPS steps of MLA_TRAIN_BATCH
+    x MLA_TRAIN_SEQ tokens through `launch.train.main`.  Counts zeroed just
+    before, read just after: every layer's attention runs the (192, 128)
+    forward (twice under remat) and backward instances, nothing else
+    launches.  Returns the launches."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import main as train_main
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--arch", "deepseek-v2-236b", "--layers", str(MLA_TRAIN_LAYERS),
+            "--microbatches", "1", "--steps", str(MLA_TRAIN_STEPS),
+            "--batch", str(MLA_TRAIN_BATCH), "--seq", str(MLA_TRAIN_SEQ)]
+    torch.cuda.reset_peak_memory_stats()
+    counters = _zeroed_counters(fa, fd, ssd)
+    stats = train_main(argv)
+    launches = counters()
+    print(json.dumps({"mla_train": stats, "launches": launches}), flush=True)
+    cfg = get_config("deepseek_v2_236b").with_(n_layers=MLA_TRAIN_LAYERS,
+                                               train_microbatches=1)
+    step = train_launches(cfg, 1)
+    _expect_launches(launches, "mla train",
+                     flash_attention=MLA_TRAIN_STEPS * step["flash_attention"],
+                     flash_attention_mla=MLA_TRAIN_STEPS * step["flash_attention"],
+                     flash_attention_bwd=MLA_TRAIN_STEPS * step["flash_attention_bwd"],
+                     flash_attention_bwd_mla=MLA_TRAIN_STEPS * step["flash_attention_bwd"])
+    losses = stats["losses"]
+    if not (len(losses) == MLA_TRAIN_STEPS and all(math.isfinite(x) for x in losses)
+            and abs(losses[0] - math.log(cfg.vocab)) < 1.5):
+        raise AssertionError(f"losses {losses}: not {MLA_TRAIN_STEPS} finite, or the first "
+                             f"far from ln {cfg.vocab} = {math.log(cfg.vocab):.2f}")
+    tokens = MLA_TRAIN_BATCH * MLA_TRAIN_SEQ
+    print(json.dumps({"step_seconds": stats["step_seconds"], "losses": losses,
+                      "tokens_per_s": stats["tokens_per_s"],
+                      "steady_tokens_per_s": tokens / min(stats["step_seconds"][1:]),
+                      "max_memory_allocated": stats["max_memory_allocated"],
+                      "mla_launches": {"forward": launches["flash_attention_mla"],
+                                       "backward": launches["flash_attention_bwd_mla"]}}),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------- 28. dry run
+def dry_run_cells(torch, fa, fd, ssd) -> list:
+    """Two dry-run cells traced in this process on the `fake` process-group
+    backend, over fake tensors (no memory, no card): deepseek-v2-236b's
+    train_4k at full width on the 16 x 16 mesh, depth cut to
+    DRYRUN_LAYERS, and the reduced olmoe-1b-7b train cell on 4 x 2.  Each
+    must trace with its per-device argument bytes, FLOPs and collectives
+    positive, the MoE cell with all-reduces (its experts' outputs summed
+    over `model`); no kernel launches.  Returns the cells (counts from a
+    trace, not device measurements)."""
+    import torch.distributed as tdist
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_mesh
+    from repro_torch.models.config import ShapeSpec
+
+    counters = _zeroed_counters(fa, fd, ssd)
+    cells = []
+    try:
+        t0 = time.perf_counter()
+        cells.append(dryrun.run_cell("deepseek_v2_236b", "train_4k", False,
+                                     overrides={"n_layers": DRYRUN_LAYERS}))
+        fake_world(8)
+        t1 = time.perf_counter()
+        mini = dryrun.trace_cell(reduced("olmoe_1b_7b").with_(train_microbatches=2),
+                                 ShapeSpec("t", 64, 16, "train"),
+                                 make_mesh((4, 2), ("data", "model")))
+        cells.append({"arch": "olmoe_1b_7b (reduced)", "shape": "t 64 x 16 train",
+                      "mesh": {"data": 4, "model": 2}, "status": "ok",
+                      "trace_s": round(time.perf_counter() - t1, 1), **mini})
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+    print(json.dumps({"dry_run": cells, "seconds": time.perf_counter() - t0}), flush=True)
+    for c in cells:
+        ok = (c["status"] == "ok" and c["memory"]["argument_bytes"] > 0
+              and c["cost"]["flops"] > 0 and c["collectives"]["total_bytes"] > 0)
+        if not ok:
+            raise AssertionError(f"dry-run cell {c['arch']} {c['shape']}: {c}")
+    if not cells[1]["collectives"].get("all-reduce", {}).get("count"):
+        raise AssertionError("the MoE dry-run cell issued no all-reduce")
+    _expect_launches(counters(), "dry run")
+    return cells
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3117,6 +3338,18 @@ def main(argv=None) -> int:
           f"{AUDIO_TRAIN_SEQ} over 1024 frames)")
     vl_train_launches = full_width_vlm_audio_train(torch, fa, fd, ssd)
 
+    phase("26. MLA train parity (reduced deepseek-v2: a train step f32 cuda vs cpu; bf16 "
+          "MLA layers' gradients, reduced and at full width)")
+    mla_train_parity(torch, fa, fd, ssd)
+
+    phase(f"27. deepseek-v2-236b train (full width, {MLA_TRAIN_LAYERS} layers, bf16, one "
+          f"microbatch, {MLA_TRAIN_STEPS} steps of {MLA_TRAIN_BATCH} x {MLA_TRAIN_SEQ})")
+    mla_train_launches = full_width_mla_train(torch, fa, fd, ssd)
+
+    phase(f"28. dry run (fake process group, fake tensors: deepseek-v2-236b train_4k at full "
+          f"width, {DRYRUN_LAYERS} layers, on 16 x 16; reduced olmoe-1b-7b train on 4 x 2)")
+    dry_run_cells(torch, fa, fd, ssd)
+
     phase("8. kernels")
     main_shape = {
         "flash_attention": ("bfloat16", dict(B=8, S=512, H=32, K=8, D=128)),
@@ -3127,6 +3360,8 @@ def main(argv=None) -> int:
         "ssd_scan_bwd": ("bfloat16", dict(b=2, s=2048, h=64, p=64, n=64, chunk=256)),
         "flash_attention_bwd": ("bfloat16", dict(B=2, S=2048, H=32, K=32, D=64)),
         "flash_attention_mla": ("bfloat16", dict(MLA_ATTN, B=MLA_REQUESTS, S=MLA_PROMPT[1])),
+        "flash_attention_bwd_mla": ("bfloat16", dict(MLA_ATTN, B=MLA_TRAIN_BATCH,
+                                                     S=MLA_TRAIN_SEQ)),
     }
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -3140,10 +3375,12 @@ def main(argv=None) -> int:
                                 "src/repro/kernels/flash_attention.py:85"),
         "flash_attention_mla": (csrc + "flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:85"),
+        "flash_attention_bwd_mla": (csrc + "flash_attention_bwd.cu",
+                                    "src/repro/kernels/flash_attention.py:85"),
     }
     kernels = []
     for name, (dtn, c) in main_shape.items():
-        case = "flash_attention" if name == "flash_attention_mla" else name  # phase 3's row
+        case = name.removesuffix("_mla")  # phase 3's row
         row = rows[(case, dtn, tuple(sorted(c.items())))]
         by_path = {"serve": serve_launches.get(name, 0),
                    "train": train_launches_seen.get(name, 0),
@@ -3159,7 +3396,8 @@ def main(argv=None) -> int:
                    "vlm_serve": vlm_serve_launches[name],
                    "audio_serve": audio_serve_launches[name],
                    "vlm_train": vl_train_launches["vlm"][name],
-                   "audio_train": vl_train_launches["audio"][name]}
+                   "audio_train": vl_train_launches["audio"][name],
+                   "mla_train": mla_train_launches[name]}
         kernels.append({"name": name, "route": "cuda", "source": meta[name][0],
                         "replaces": meta[name][1], "launches": sum(by_path.values()),
                         "launches_by_path": by_path,

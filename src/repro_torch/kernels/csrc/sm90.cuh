@@ -264,9 +264,23 @@ __device__ __forceinline__ void wgmma_64x32_rs(float (&d)[16], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTransB));
 }
 
+// D(64 x 16) (+)= A(64 x 16, registers) B(16 x 16, shared memory).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_64x16_rs(float (&d)[8], const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTransB));
+}
+
 #undef REPRO_ACC16
 
-// The accumulator slice of columns [64 i, 64 i + 64) (or [32 i, ...)) of a
+// The accumulator slice of columns [W i, W i + W) (W = 64, 32 or 16) of a
 // wider one: the fragment of a wide product is its 64-column products' side
 // by side.
 template <int W, int N>
@@ -316,12 +330,13 @@ __device__ __forceinline__ void mma_abt(float (&s)[N / 2], const void* a, uint32
 
 // O (64 x D) += P (64 x 16 KS, registers) . V (16 KS x D, MN-major Tile<D>
 // in shared memory, sub-tiles v_sub bytes apart).  p holds 4 registers per
-// k-step.
+// k-step.  One n32 product at D = 32, one n16 product per 16-column
+// sub-tile at D = 48, else one n64 product per 64-column sub-tile.
 template <int D, int KS>
 __device__ __forceinline__ void mma_pv(float (&o)[D / 2], const uint32_t (&p)[4 * KS],
                                        const void* v, uint32_t v_sub) {
   using T = Tile<D>;
-  static_assert(D == 32 || D % 64 == 0, "an n32 product, or n64 products side by side");
+  static_assert(D == 32 || T::kCols == 16 || D % 64 == 0, "n32, n16 or n64 products");
   const uint64_t dv = make_desc(v, T::kRowBytes);
 #pragma unroll
   for (int k = 0; k < KS; ++k) {
@@ -331,6 +346,8 @@ __device__ __forceinline__ void mma_pv(float (&o)[D / 2], const uint32_t (&p)[4 
       const uint64_t dvk = desc_add(dv, sub * v_sub + k * 16 * T::kRowBytes);
       if constexpr (D == 32) {
         wgmma_64x32_rs<1>(o, pk, dvk, 1);
+      } else if constexpr (T::kCols == 16) {
+        wgmma_64x16_rs<1>(acc_slice<16>(o, sub), pk, dvk, 1);
       } else {
         wgmma_64x64_rs<1>(acc_slice<64>(o, sub), pk, dvk, 1);
       }

@@ -10,9 +10,9 @@ dtypes, joined to the forward by a `torch.autograd.Function`.  Unlike the
 Pallas kernel they take any Sq / Skv (ragged tails are masked), so they
 have no block-size arguments.  The forward also takes a value head
 narrower than the query / key head (Dv != D: multi-head latent attention's
-prefill), which the Pallas kernel does not; the backward takes Dv == D
-alone, and a call that would need it for another pair raises before any
-launch.
+prefill and training), which the Pallas kernel does not: both kernels
+take the pairs of MLA_HEAD_DIMS beside D == Dv in HEAD_DIMS, and any other
+pair raises before any launch.
 
 A CUDA tensor launches the kernel (or the wrapper raises); a CPU tensor
 takes `flash_attention_plain` (and autograd through it), which the tests and
@@ -30,12 +30,12 @@ from . import _build
 from .ref import naive_attention
 
 HEAD_DIMS = (32, 64, 128)  # the kernels' template instances with Dv == D
-# the forward's instances with Dv != D, (D, Dv): deepseek-v2's MLA prefill
-# (d_nope + d_rope, d_v) at full width and at its reduced widths
+# the instances with Dv != D, (D, Dv), forward and backward: deepseek-v2's
+# MLA (d_nope + d_rope, d_v) at full width and at its reduced widths
 MLA_HEAD_DIMS = ((192, 128), (48, 32))
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -56,25 +56,25 @@ def flash_attention_bwd_plain(q, k, v, do, *, causal: bool = True,
         return torch.autograd.grad(o, ins, do)
 
 
-def supports(q, k, v, backward: bool = False) -> bool:
-    """Whether the kernels take these shapes: q (B, Sq, H, D), k (B, Skv,
-    K, D) and v (B, Skv, K, Dv) with H % K == 0 and either D == Dv in
-    HEAD_DIMS or, for the forward alone, (D, Dv) in MLA_HEAD_DIMS.  Exactly
-    the shape test of `_check`, which raises for any other shape on
-    the card."""
+def supports(q, k, v) -> bool:
+    """Whether the kernels (forward and backward alike) take these shapes:
+    q (B, Sq, H, D), k (B, Skv, K, D) and v (B, Skv, K, Dv) with H % K == 0
+    and either D == Dv in HEAD_DIMS or (D, Dv) in MLA_HEAD_DIMS.  Exactly
+    the shape test of `_check`, which raises for any other shape on the
+    card."""
     B, _, H, D = q.shape
     Dv = v.shape[3]
-    pair_ok = (D == Dv and D in HEAD_DIMS) or (not backward and (D, Dv) in MLA_HEAD_DIMS)
+    pair_ok = (D == Dv and D in HEAD_DIMS) or (D, Dv) in MLA_HEAD_DIMS
     return (k.shape[0] == B and k.shape[3] == D and v.shape[:3] == k.shape[:3]
             and H % k.shape[2] == 0 and pair_ok)
 
 
-def _check(kernel: str, q, k, v, backward: bool = False) -> int:
-    if not supports(q, k, v, backward):
-        pairs = "" if backward else f" or (D, Dv) in {MLA_HEAD_DIMS}"
+def _check(kernel: str, q, k, v) -> int:
+    if not supports(q, k, v):
         raise ValueError(f"{kernel}: unsupported shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} "
-                         f"(D == Dv in {HEAD_DIMS}{pairs}, H % K == 0)")
+                         f"(D == Dv in {HEAD_DIMS} or (D, Dv) in {MLA_HEAD_DIMS}, "
+                         f"H % K == 0)")
     if q.device.type != "cuda":
         raise ValueError(f"{kernel}: no kernel for device {q.device}")
     return _build.check_inputs(kernel, q, k, v)
@@ -109,26 +109,30 @@ def flash_attention_fwd(q, k, v, *, causal: bool, scale: float,
 
 def _launch_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float):
     """(dq, dk, dv) of `flash_attention` for the upstream gradient do, given
-    the forward's o and lse: the dQ and dK/dV kernels, on CUDA tensors."""
-    code = _check("flash_attention_bwd", q, k, v, backward=True)
+    the forward's o and lse: the dQ and dK/dV kernels, on CUDA tensors.
+    o and do are (B, Sq, H, Dv)."""
+    code = _check("flash_attention_bwd", q, k, v)
     _build.check_inputs("flash_attention_bwd", q, o, do, (lse, torch.float32))
-    if o.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"flash_attention_bwd: o{tuple(o.shape)} / "
-                         f"do{tuple(do.shape)} != q{tuple(q.shape)}")
     B, Sq, H, D = q.shape
     _, Skv, K, _ = k.shape
+    Dv = v.shape[3]
+    if o.shape != (B, Sq, H, Dv) or do.shape != o.shape:
+        raise ValueError(f"flash_attention_bwd: o{tuple(o.shape)} / "
+                         f"do{tuple(do.shape)} != {(B, Sq, H, Dv)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     fn = _build.load("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), delta.data_ptr(), B, Sq, Skv, H, K, D,
+                 dv.data_ptr(), delta.data_ptr(), B, Sq, Skv, H, K, D, Dv,
                  int(causal), scale, code, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
                            f"cudaError {err}")
     _launch_bwd.launches += 1
+    if Dv != D:
+        _launch_bwd.mla_launches += 1
     return dq, dk, dv
 
 
@@ -153,15 +157,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, Sq, H, D); k: (B, Skv, K, D); v: (B, Skv, K, Dv) with
     H % K == 0.  Returns (B, Sq, H, Dv) in q's dtype, differentiable in q,
-    k and v where Dv == D (the backward is `_launch_bwd`'s kernels; with
-    Dv != D a call that needs a gradient raises before any launch).  With
-    no gradient to follow, as in serving, the forward writes no
-    logsumexp."""
+    k and v (the backward is `_launch_bwd`'s kernels).  With no gradient to
+    follow, as in serving, the forward writes no logsumexp."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        _check("flash_attention_bwd", q, k, v, backward=True)
         return _FlashAttention.apply(q, k, v, causal, scale)
     return flash_attention_fwd(q, k, v, causal=causal, scale=scale, with_lse=False)[0]
 
@@ -169,3 +170,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0  # forward kernel launches since the last reset
 flash_attention.mla_launches = 0  # those of them with Dv != D (MLA's prefill)
 _launch_bwd.launches = 0      # backward launches (dQ + dK/dV kernels) since the last reset
+_launch_bwd.mla_launches = 0  # those of them with Dv != D (MLA's training)

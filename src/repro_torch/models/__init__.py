@@ -4,6 +4,7 @@ from .config import (SHAPES, SHAPES_BY_NAME, MLAConfig, ModelConfig,
                      MoEConfig, ShapeSpec, SSMConfig, XLSTMConfig,
                      applicable_shapes, torch_dtype)
 from .convert import from_jax_params
+from .dist import get_mesh, set_mesh
 from .model import (TrainBatch, decode_step, forward, init_cache, init_params,
                     loss_fn, prefill)
 
@@ -11,5 +12,5 @@ __all__ = [
     "SHAPES", "SHAPES_BY_NAME", "MLAConfig", "ModelConfig", "MoEConfig",
     "ShapeSpec", "SSMConfig", "XLSTMConfig", "applicable_shapes",
     "torch_dtype", "from_jax_params", "TrainBatch", "decode_step", "forward",
-    "init_cache", "init_params", "loss_fn", "prefill",
+    "init_cache", "init_params", "loss_fn", "prefill", "get_mesh", "set_mesh",
 ]

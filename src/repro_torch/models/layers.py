@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from . import dist
 from .config import SLICE_ELEMS, ModelConfig, torch_dtype
 
 Params = Dict[str, torch.Tensor]
@@ -90,11 +91,15 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return p["tok"].to(torch_dtype(cfg.compute_dtype))[tokens]
+    w = dist.unshard_dp(p["tok"]).to(torch_dtype(cfg.compute_dtype))
+    # an embedding op, whose DTensor rules cover its backward (those of
+    # indexing, an index_put, fail in torch 2.11); under a mesh the lookup
+    # in a vocab-sharded table is a masked partial sum, reduced here once
+    return dist.constrain_batch(F.embedding(tokens, w))
 
 
 def unembed(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    w = p.get("unembed", p["tok"]).to(torch_dtype(cfg.compute_dtype))
+    w = dist.unshard_dp(p.get("unembed", p["tok"])).to(torch_dtype(cfg.compute_dtype))
     return x @ w.T
 
 
@@ -130,19 +135,21 @@ def gqa_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     Returns (out, cache or None).
     """
     ct = torch_dtype(cfg.compute_dtype)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(ct))
+    q = dist.constrain_heads(torch.einsum("bsd,dhk->bshk", x, p["wq"].to(ct)))
     src = x if kv_source is None else kv_source
-    k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(ct))
-    v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(ct))
+    k = dist.constrain_heads(torch.einsum("bsd,dhk->bshk", src, p["wk"].to(ct)))
+    v = dist.constrain_heads(torch.einsum("bsd,dhk->bshk", src, p["wv"].to(ct)))
     if kv_source is not None:
-        out = kops.attention(q, k, v, causal=False, block_q=cfg.attn_block_q,
-                             block_kv=cfg.attn_block_kv)
+        out = dist.local_heads(lambda q, k, v: kops.attention(
+            q, k, v, causal=False, block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv),
+            q, k, v)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(ct)), None
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     if cache is None:
-        out = kops.attention(q, k, v, causal=causal, block_q=cfg.attn_block_q,
-                             block_kv=cfg.attn_block_kv)
+        out = dist.local_heads(lambda q, k, v: kops.attention(
+            q, k, v, causal=causal, block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv),
+            q, k, v)
         new_cache = (k, v) if return_kv else None
     else:
         # the reference's dynamic_update_slice: a write past the end of the
@@ -152,9 +159,9 @@ def gqa_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         start = min(cache_index, Skv - Sq)
         ck[:, start:start + Sq] = k
         cv[:, start:start + Sq] = v
-        out = kops.attention(q, ck, cv, causal=False,
-                             kv_valid_len=min(cache_index + Sq, Skv),
-                             block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv)
+        out = dist.local_heads(lambda q, k, v: kops.attention(
+            q, k, v, causal=False, kv_valid_len=min(cache_index + Sq, Skv),
+            block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv), q, ck, cv)
         new_cache = (ck, cv)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(ct))
     return out, new_cache
@@ -203,7 +210,7 @@ def mla_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     m = cfg.mla
     ct = torch_dtype(cfg.compute_dtype)
     q = torch.einsum("bsd,dq->bsq", x, p["wq_a"].to(ct))
-    q = torch.einsum("bsq,qhk->bshk", q, p["wq_b"].to(ct))
+    q = dist.constrain_heads(torch.einsum("bsq,qhk->bshk", q, p["wq_b"].to(ct)))
     q_nope, q_rope = q[..., :m.d_nope], q[..., m.d_nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv = torch.einsum("bsd,dc->bsc", x, p["wkv_a"].to(ct))
@@ -212,13 +219,14 @@ def mla_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     scale = 1.0 / math.sqrt(m.d_nope + m.d_rope)
 
     if cache is None:
-        kv = torch.einsum("bsc,chk->bshk", c_kv, p["wkv_b"].to(ct))
+        kv = dist.constrain_heads(torch.einsum("bsc,chk->bshk", c_kv, p["wkv_b"].to(ct)))
         k_nope, v = kv[..., :m.d_nope], kv[..., m.d_nope:]
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_nope.shape[:3], m.d_rope)],
                       dim=-1)
         qf = torch.cat([q_nope, q_rope], dim=-1)
-        out = kops.attention(qf, k, v, causal=causal, scale=scale,
-                             block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv)
+        out = dist.local_heads(lambda q, k, v: kops.attention(
+            q, k, v, causal=causal, scale=scale, block_q=cfg.attn_block_q,
+            block_kv=cfg.attn_block_kv), qf, k, v)
         out = torch.einsum("bshv,hvd->bsd", out, p["wo"].to(ct))
         return out, ((c_kv, k_rope) if return_kv else None)
 
@@ -256,6 +264,6 @@ def init_swiglu(gen: torch.Generator, d: int, d_ff: int, dtype: torch.dtype,
 
 def swiglu_fwd(p: Params, x: torch.Tensor, compute_dtype: str) -> torch.Tensor:
     ct = torch_dtype(compute_dtype)
-    g = x @ p["w_gate"].to(ct)
-    u = x @ p["w_up"].to(ct)
+    g = dist.constrain_hidden(x @ p["w_gate"].to(ct))
+    u = dist.constrain_hidden(x @ p["w_up"].to(ct))
     return (F.silu(g) * u) @ p["w_down"].to(ct)

@@ -45,6 +45,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from . import dist
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig, torch_dtype
@@ -67,8 +68,9 @@ def _remat(fn, cfg: ModelConfig):
 
 
 def _layer(stacked: Params, i: int) -> Params:
-    """Layer i's params, as views into the (L, ...) stacks."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+    """Layer i's params, as views into the (L, ...) stacks (under a mesh,
+    gathered over the batch axes where the layer uses them)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else dist.unshard_dp(v[i])
             for k, v in stacked.items()}
 
 
@@ -84,18 +86,22 @@ def _block_fwd(p: Params, x, cfg: ModelConfig, *, positions, cache=None,
     block with "moe" params, the routed experts.  Returns (x, cache or
     None, aux): aux is the MoE block's f32 load-balance loss, 0.0 for a
     dense block."""
+    x = dist.constrain_batch(x)
     attn_fn = mla_fwd if cfg.mla else gqa_fwd
     h, new_cache = attn_fn(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
                            positions=positions, cache=cache,
                            cache_index=cache_index, causal=causal,
                            return_kv=return_kv)
-    x = x + h
+    # under a mesh the residual is pinned before the norm: a sum that is
+    # partial over `model` would otherwise be reduce-scattered along the
+    # sequence
+    x = dist.constrain_batch(x + h)
     hn = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if "moe" in p:
         h, aux = moe_mod.moe_fwd(p["moe"], hn, cfg)
     else:
         h, aux = swiglu_fwd(p["ffn"], hn, cfg.compute_dtype), 0.0
-    return x + h, new_cache, aux
+    return dist.constrain_batch(x + h), new_cache, aux
 
 
 # ================================================================== init
@@ -186,13 +192,14 @@ def _dec_block_fwd(p: Params, x, enc, cfg: ModelConfig, *, positions, cache=None
     with return_kv its new (k, v) come back), cross-attention over the
     encoder's memory `enc`, SwiGLU.  Returns (x, self-attention cache or
     None)."""
+    x = dist.constrain_batch(x)
     h, new_self = gqa_fwd(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
                           positions=positions, cache=cache, cache_index=cache_index,
                           causal=True, return_kv=return_kv)
-    x = x + h
+    x = dist.constrain_batch(x + h)
     h, _ = gqa_fwd(p["xattn"], rmsnorm(p["ln_x"], x, cfg.norm_eps), cfg,
                    positions=positions, kv_source=enc)
-    x = x + h
+    x = dist.constrain_batch(x + h)
     h = swiglu_fwd(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.compute_dtype)
     return x + h, new_self
 
@@ -201,7 +208,8 @@ def _patches(params: Params, extra, cfg: ModelConfig):
     """A VLM's patch embeddings (B, P, d) projected by `patch_proj`, in the
     compute dtype: the rows put before the embedded text."""
     ct = torch_dtype(cfg.compute_dtype)
-    return torch.einsum("bpd,de->bpe", extra.to(ct), params["patch_proj"].to(ct))
+    return torch.einsum("bpd,de->bpe", extra.to(ct),
+                        dist.unshard_dp(params["patch_proj"]).to(ct))
 
 
 def _encode(params: Params, extra, cfg: ModelConfig, remat: bool = True):
@@ -272,7 +280,7 @@ def _forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     x = embed(params["embed"], tokens, cfg)
     n_patch = 0
     if cfg.family == "vlm" and extra is not None:
-        x = torch.cat([_patches(params, extra, cfg), x], dim=1)
+        x = dist.constrain_batch(torch.cat([_patches(params, extra, cfg), x], dim=1))
         n_patch = extra.shape[1]
     positions = _positions(x.shape[0], 0, x.shape[1], tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -312,8 +320,9 @@ def _hybrid_forward(params: Params, x, positions, cfg: ModelConfig):
     body, tail = _hybrid_split(cfg, params["layers"])
 
     def m_body(h, lp):
+        h = dist.constrain_batch(h)
         d, _ = ssm_mod.mamba2_fwd(lp, h, cfg)
-        return h + d
+        return dist.constrain_batch(h + d)
 
     m_body = _remat(m_body, cfg)
 
@@ -338,12 +347,14 @@ def _xlstm_forward(params: Params, x, cfg: ModelConfig):
     G, n_m = _xlstm_groups(cfg)
 
     def m_body(h, lp):
-        return h + ssm_mod.mlstm_fwd(lp, h, cfg)[0]
+        h = dist.constrain_batch(h)
+        return dist.constrain_batch(h + ssm_mod.mlstm_fwd(lp, h, cfg)[0])
 
     m_body = _remat(m_body, cfg)
 
     def group_body(h, gi):
-        h = h + ssm_mod.slstm_fwd(_layer(params["slstm"], gi), h, cfg)[0]
+        h = dist.constrain_batch(h)
+        h = dist.constrain_batch(h + ssm_mod.slstm_fwd(_layer(params["slstm"], gi), h, cfg)[0])
         mp = _layer(params["mlstm"], gi)
         for j in range(n_m):
             h = m_body(h, _layer(mp, j))
@@ -364,9 +375,11 @@ def loss_fn(params: Params, batch: TrainBatch, cfg: ModelConfig,
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     # the gold logit by gather: the same value as the reference's masked
-    # sum (one non-zero term), without a (B, S, V) mask
-    gold = torch.gather(logits, -1, batch.labels[..., None].long())[..., 0]
-    nll = (logz - gold).mean()
+    # sum (one non-zero term), without a (B, S, V) mask; kept (B, S, 1) and
+    # (under a mesh) reduced at once, as DTensor's gather on vocab-sharded
+    # logits leaves a partial sum masked to its result's shape
+    gold = dist.constrain_batch(torch.gather(logits, -1, batch.labels[..., None].long()))
+    nll = (logz[..., None] - gold).mean()
     zloss = 1e-4 * (logz ** 2).mean()
     loss = nll + zloss + aux_coef * aux
     return loss, {"nll": nll, "aux": aux, "zloss": zloss}
@@ -507,7 +520,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     multiple of it, as in the reference."""
     x = embed(params["embed"], tokens, cfg)
     if cfg.family == "vlm" and extra is not None:
-        x = torch.cat([_patches(params, extra, cfg), x], dim=1)
+        x = dist.constrain_batch(torch.cat([_patches(params, extra, cfg), x], dim=1))
     positions = _positions(x.shape[0], 0, x.shape[1], tokens.device)
     if cfg.family == "hybrid":
         x, cache = _hybrid_prefill(params, x, positions, cfg)

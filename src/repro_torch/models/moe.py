@@ -1,12 +1,18 @@
-"""Mixture-of-Experts FFN on one device.
+"""Mixture-of-Experts FFN, on one device or expert-parallel over a mesh.
 
-The port's counterpart of `repro.models.moe`, its single-device branch:
-top-k routing from f32 router logits, capacity-based dispatch (GShard-style
-token dropping) into an (E, C+1, d) buffer whose last slot takes the
-overflow, the experts as three batched GEMMs, the gated combine, the
-Switch load-balance aux loss, and optional shared (always-on) experts.
-Expert parallelism (the reference's `shard_map` branch) comes with the
-sharding slice.
+The port's counterpart of `repro.models.moe`: top-k routing from f32 router
+logits, capacity-based dispatch (GShard-style token dropping) into an (E,
+C+1, d) buffer whose last slot takes the overflow, the experts as three
+batched GEMMs, the gated combine, the Switch load-balance aux loss, and
+optional shared (always-on) experts.
+
+With a mesh that has a `model` axis (`models.dist.set_mesh`), the
+reference's `shard_map` branch: the experts are sharded over `model` and
+the batch over the dp axes (`local_map`); each rank routes its local
+tokens, runs its n_experts / ep experts over them at the reference's
+capacity (per `token_chunk` tokens when the config chunks its dispatch),
+and the outputs are summed over `model`.  Without a mesh the single-device
+branch runs.
 
 The reference scatters with `.at[].add`; the port keeps every step
 deterministic on the card instead.  Each kept (expert, slot) pair is
@@ -18,11 +24,12 @@ no float atomics run and a second serve gives the same tokens.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from . import dist
 from .config import ModelConfig, torch_dtype
 from .layers import _init, init_swiglu, swiglu_fwd
 
@@ -67,7 +74,9 @@ def _route(x2d: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
     top_w, top_e = torch.topk(probs, m.top_k, dim=-1)
     top_w = top_w / top_w.sum(dim=-1, keepdim=True)
     eid = top_e.reshape(-1)
-    onehot = F.one_hot(eid, m.n_experts).to(torch.int32)
+    # the one-hot by comparison (no value check that reads the data, so a
+    # trace on fake tensors runs it)
+    onehot = (eid[:, None] == torch.arange(m.n_experts, device=eid.device)).to(torch.int32)
     pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - 1
     pos = torch.gather(pos, 1, eid[:, None])[:, 0]
     keep = pos < capacity
@@ -75,14 +84,28 @@ def _route(x2d: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
     return probs, top_w.reshape(-1), eid, keep, slot
 
 
-def _moe_local(x2d: torch.Tensor, p: Params, cfg: ModelConfig, capacity: int):
-    """Route x2d (T, d), run every expert over its slots, combine.  Returns
-    (y (T, d) in x2d's dtype, frac_prob (E,), assigned (E,), T)."""
+def _moe_local(x2d: torch.Tensor, p: Params, cfg: ModelConfig, capacity: int,
+               e_start: int = 0, n_local: Optional[int] = None):
+    """Route x2d (T, d), run the experts p holds over their slots, combine.
+    p's expert weights are experts e_start .. e_start + n_local - 1 (all of
+    them by default); an assignment to another expert contributes 0 here.
+    An expert's slots are claimed in token order whichever experts a rank
+    holds, so a rank's slots are the single-device branch's.  Returns (y
+    (T, d) in x2d's dtype, the partial sum over these experts; frac_prob
+    (E,); assigned (E,), every assignment counted; T)."""
     m = cfg.moe
     T, d = x2d.shape
-    k, E = m.top_k, m.n_experts
+    k, E = m.top_k, n_local or m.n_experts
     ct = x2d.dtype
     probs, gate, eid, keep, slot = _route(x2d, p["router"], cfg, capacity)
+    # each expert's assignments, summed as exact small integers (bincount's
+    # output size reads the data)
+    assigned = torch.zeros(m.n_experts, device=eid.device).index_add_(
+        0, eid, torch.ones(eid.shape, device=eid.device))
+    if E != m.n_experts:   # this rank's slice of the experts
+        keep = keep & (eid >= e_start) & (eid < e_start + E)
+        slot = torch.where(keep, slot, capacity)
+        eid = torch.where(keep, eid - e_start, 0)
     # dispatch: each token's row, k times (a = t * k + j), into its slot
     xs = x2d[:, None, :].expand(T, k, d).reshape(T * k, d)
     buf = torch.index_put(x2d.new_zeros((E, capacity + 1, d)), (eid, slot), xs)
@@ -97,21 +120,83 @@ def _moe_local(x2d: torch.Tensor, p: Params, cfg: ModelConfig, capacity: int):
     contrib = torch.where(keep[:, None], rows * gate.to(ct)[:, None], 0)
     y = contrib.reshape(T, k, d).sum(dim=1)
     frac_prob = probs.mean(dim=0)
-    assigned = torch.bincount(eid, minlength=E).float()
     return y, frac_prob, assigned, T
+
+
+def _moe_ep(p: Params, x, cfg: ModelConfig, mesh):
+    """The expert-parallel branch: `local_map` of the reference's shard_fn
+    over the mesh.  x (B, S, d) is sharded over the dp axes (dim 0) and
+    replicated over `model`, which shards the experts.  Returns (y (B, S,
+    d) as x, frac_prob (E,), assigned (E,), T), the last three replicated
+    and summed (frac_prob averaged) over the ranks as the reference's
+    collectives do."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding import placements
+    m = cfg.moe
+    B, S, d = x.shape
+    names = mesh.mesh_dim_names
+    ba = dist.batch_axes()
+    ep = mesh.shape[names.index("model")]
+    n_local = m.n_experts // ep
+    n_dp = math.prod(mesh.shape[names.index(a)] for a in ba)
+    cap = _capacity(B * S // n_dp, cfg)
+
+    def psum(t, axes):
+        for a in axes:
+            t = funcol.all_reduce(t, "sum", (mesh, names.index(a)))
+        return t
+
+    def shard_fn(xs, router, w1, w3, w2):
+        T = xs.shape[0] * xs.shape[1]
+        j = mesh.get_local_rank("model")
+        lp = {"router": router, "w1": w1, "w3": w3, "w2": w2}
+        tc = m.token_chunk
+        if tc and T > tc and T % tc == 0:
+            # chunked dispatch: capacity and the (T k, d) gather / scatter
+            # buffers scale with the chunk, not the batch
+            cap_c = max(8, -(-cap * tc // T // 8) * 8)
+            outs = [_moe_local(xc, lp, cfg, cap_c, j * n_local, n_local)
+                    for xc in xs.reshape(T // tc, tc, d)]
+            y = torch.cat([o[0] for o in outs])
+            fp = torch.stack([o[1] for o in outs]).mean(dim=0)
+            asg = torch.stack([o[2] for o in outs]).sum(dim=0)
+        else:
+            y, fp, asg, _ = _moe_local(xs.reshape(T, d), lp, cfg, cap, j * n_local, n_local)
+        t = torch.tensor(float(T), device=xs.device)
+        y = psum(y, ("model",))
+        fp = psum(fp, ba) / n_dp                  # the mean over the batch axes
+        asg = psum(asg, ba + ("model",))
+        t = psum(t, ba + ("model",))
+        return y.reshape(xs.shape), fp, asg, t
+
+    x_pl = placements((dist._flat(ba), None, None), mesh)
+    rep = tuple(Replicate() for _ in names)
+    ex = placements(("model", None, None), mesh)
+    return local_map(shard_fn, out_placements=(x_pl, rep, rep, rep),
+                     in_placements=(x_pl, rep, ex, ex, ex), device_mesh=mesh,
+                     redistribute_inputs=True)(x, p["router"], p["w1"], p["w3"], p["w2"])
 
 
 def moe_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Routed experts (+ the shared ones).  x (B, S, d) -> (y (B, S, d),
     the f32 aux loss n_experts * sum(frac_prob * frac_tokens)).  Capacity
-    counts all B * S tokens, pads included."""
+    counts all B * S tokens of a rank, pads included."""
     m = cfg.moe
     B, S, d = x.shape
-    y, frac_prob, assigned, T = _moe_local(x.reshape(B * S, d), p,
-                                           cfg, _capacity(B * S, cfg))
-    y = y.reshape(B, S, d)
-    frac_tokens = assigned / max(T * m.top_k, 1)
+    mesh = dist.get_mesh()
+    if mesh is not None and "model" in mesh.mesh_dim_names:
+        y, frac_prob, assigned, T = _moe_ep(p, x, cfg, mesh)
+    else:
+        y, frac_prob, assigned, T = _moe_local(x.reshape(B * S, d), p,
+                                               cfg, _capacity(B * S, cfg))
+        y = y.reshape(B, S, d)
+    n_assigned = T * m.top_k   # an int, or (expert-parallel) a 0-d tensor
+    frac_tokens = assigned / (n_assigned.clamp(min=1) if torch.is_tensor(n_assigned)
+                              else max(n_assigned, 1))
     aux = m.n_experts * torch.sum(frac_prob * frac_tokens)
     if m.n_shared:
         y = y + swiglu_fwd(p["shared"], x, cfg.compute_dtype)

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from . import dist
 from .config import ModelConfig, torch_dtype
 from .layers import _init, init_rmsnorm, rmsnorm
 
@@ -99,8 +100,8 @@ def mamba2_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                                       state.conv_bc if state is not None else None)
     xs = F.silu(conv_x)
     B, C = torch.chunk(F.silu(conv_bc), 2, dim=-1)
-    xh = xs.reshape(*xs.shape[:2], nh, s.d_head)
-    dt = F.softplus(dt.float() + p["dt_bias"][None, None])
+    xh = dist.constrain_heads(xs.reshape(*xs.shape[:2], nh, s.d_head))
+    dt = dist.constrain_heads(F.softplus(dt.float() + p["dt_bias"][None, None]))
     A = -torch.exp(p["a_log"])
     if state is None:
         if return_state:

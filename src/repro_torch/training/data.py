@@ -3,7 +3,7 @@
 The port's counterpart of `repro.training.data`.  Each batch comes from
 numpy seeded by (seed, step), exactly as in the reference, so both packages
 train on the same tokens and an elastic restart resumes the exact stream.
-`input_specs` comes with the dry-run slice.
+`input_specs` gives a dry run its inputs as meta tensors.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import TrainBatch
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeSpec
 
 
 def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,
@@ -44,3 +44,26 @@ def stream(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,
     while True:
         yield synthetic_batch(cfg, batch, seq, seed=seed, step=step, device=device)
         step += 1
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec):
+    """The inputs of a dry-run cell as meta tensors (shapes and dtypes, no
+    allocation), the reference's: int32 tokens, f32 patch or frame
+    embeddings.  train: a TrainBatch (a VLM's text is the sequence less its
+    patches); prefill: {"tokens", "extra"}; decode: {"tokens"}, one new
+    token a sequence against a seq_len cache."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+    if shape.kind == "decode":
+        return {"tokens": meta(B, 1)}
+    extra, s_text = None, S
+    if cfg.family == "vlm":
+        s_text = S - cfg.n_patches
+        extra = meta(B, cfg.n_patches, cfg.d_model, dtype=torch.float32)
+    elif cfg.family == "audio":
+        extra = meta(B, cfg.enc_len, cfg.d_model, dtype=torch.float32)
+    if shape.kind == "train":
+        return TrainBatch(tokens=meta(B, s_text), labels=meta(B, s_text), extra=extra)
+    return {"tokens": meta(B, s_text), "extra": extra}

@@ -14,6 +14,7 @@ import math
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.config import SLICE_ELEMS
 
@@ -94,7 +95,9 @@ class AdamW(NamedTuple):
         c2 = 1 - torch.pow(torch.tensor(self.b2, device=stepf.device), stepf)
 
         def upd(g, m, v, p):
-            if p.dim() > 1 and p.numel() > UPDATE_SLICE_ELEMS:
+            # a big leaf in blocks of rows (a DTensor's shards are each
+            # rank's already, and its rows may be sharded)
+            if p.dim() > 1 and p.numel() > UPDATE_SLICE_ELEMS and not isinstance(p, DTensor):
                 rows = UPDATE_SLICE_ELEMS // math.prod(p.shape[1:])
                 if rows <= 1:                         # views along axis 0
                     blocks = zip(g, m, v, p)

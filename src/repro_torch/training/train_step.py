@@ -1,8 +1,10 @@
 """Train step: grad + AdamW, with microbatch accumulation and optional int8
 gradient compression with error feedback.
 
-The port's counterpart of `repro.training.train_step` on one card (no mesh,
-so the reference's sharding constraints have nothing to pin):
+The port's counterpart of `repro.training.train_step`.  Under a mesh
+(`models.dist.set_mesh`) the microbatches and the accumulated grads are
+pinned as the reference pins them; with none (one card) those constraints
+are the identity:
 
   * microbatches > 1 -- gradient accumulation: each microbatch's grads are
     added into f32 zeros, and the sum is divided by `microbatches`; the
@@ -18,7 +20,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.models import TrainBatch, loss_fn
+from repro_torch.models import TrainBatch, dist, loss_fn
 from repro_torch.models.config import ModelConfig
 from .optimizer import AdamW, AdamWState, tree_leaves, tree_map
 
@@ -58,9 +60,11 @@ def compress(grads, ef):
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamW, *, microbatches: int = 1,
-                    compress_grads: bool = False):
+                    compress_grads: bool = False, grad_shardings=None):
     """Returns train_step(state, batch) -> (state, metrics); metrics are
-    f32 scalar tensors on the params' device."""
+    f32 scalar tensors on the params' device.  `grad_shardings` (placements
+    matching params, `sharding.tree_shardings`) pins the accumulated grads
+    under a mesh."""
 
     def grads_of(params, batch: TrainBatch):
         leaves = list(tree_leaves(params))
@@ -80,16 +84,25 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, microbatches: int = 1,
             def split(x):  # None (no extra) stays None, as jax.tree.map skips it
                 if x is None:
                     return None
-                return x.reshape(microbatches, x.shape[0] // microbatches, *x.shape[1:])
+                # under a mesh the rows are gathered first: microbatch i is
+                # rows i b / n .. (i + 1) b / n, which a reshape of the
+                # batch-sharded dim cannot cut evenly
+                x = dist.constrain(x, *([None] * x.ndim))
+                x = x.reshape(microbatches, x.shape[0] // microbatches, *x.shape[1:])
+                # microbatch dim replicated; per-microbatch batch stays
+                # sharded over pod x data
+                return dist.constrain(x, None, "batch", *([None] * (x.ndim - 2)))
             parts = TrainBatch(*(split(x) for x in batch))
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+            grads = dist.constrain_tree(grads, grad_shardings)
             loss = torch.zeros((), dtype=torch.float32, device=batch.tokens.device)
             for i in range(microbatches):
-                mb = TrainBatch(*(None if x is None else x[i] for x in parts))
+                mb = TrainBatch(*(dist.constrain_batch(None if x is None else x[i])
+                                  for x in parts))
                 l_i, metrics, g_i = grads_of(params, mb)
                 loss = loss + l_i
                 tree_map(lambda a, g: a.add_(g), grads, g_i)
+                grads = dist.constrain_tree(grads, grad_shardings)
                 del g_i
             loss = loss / microbatches
             tree_map(lambda g: g.div_(microbatches), grads)

@@ -31,12 +31,14 @@ from hypothesis import strategies as st  # noqa: E402
 from repro.core import decision as D  # noqa: E402
 from repro.core import decision_jax as J  # noqa: E402
 from repro.core.experiment import Experiment as JExperiment  # noqa: E402
+from repro.core import policy as jpolicy  # noqa: E402
 from repro.core.policy import registered_mechanisms as jregistered_mechanisms  # noqa: E402
 from repro.core.workloads import WorkloadConfig as JWorkloadConfig  # noqa: E402
 from repro.kernels import ops as kops  # noqa: E402
 from repro_torch.core import Experiment, WorkloadConfig, registered_mechanisms  # noqa: E402
 from repro_torch.core import decision as PD  # noqa: E402
 from repro_torch.core import decision_torch as T  # noqa: E402
+from test_torch_live_cluster import hide_reference_test_policies  # noqa: E402
 
 # test_decision_jax.py's pad lengths and seeds
 SIZES = (0, 1, 2, 3, 7, 16)
@@ -236,10 +238,13 @@ MIXES = ("W1", "W4")
 @pytest.fixture(scope="module")
 def grids():
     """The same grid through the reference (device="jax") and the port
-    (device="torch" on the CPU)."""
-    ref = JExperiment(mechanisms=jregistered_mechanisms(),
-                      workloads=[JWorkloadConfig(n_jobs=40, notice_mix=m) for m in MIXES],
-                      device="jax", **GRID).run()
+    (device="torch" on the CPU), over every built-in mechanism."""
+    with pytest.MonkeyPatch.context() as mp:
+        hide_reference_test_policies(mp)
+        ref = JExperiment(mechanisms=jregistered_mechanisms(),
+                          workloads=[JWorkloadConfig(n_jobs=40, notice_mix=m)
+                                     for m in MIXES],
+                          device="jax", **GRID).run()
     port = Experiment(mechanisms=registered_mechanisms(),
                       workloads=[WorkloadConfig(n_jobs=40, notice_mix=m) for m in MIXES],
                       device="torch", sweep_device="cpu", **GRID).run()
@@ -251,8 +256,9 @@ def _cells(result):
              r.decision_trace) for r in result.runs]
 
 
-def test_experiment_report_and_metrics_equal_the_references(grids):
+def test_experiment_report_and_metrics_equal_the_references(grids, monkeypatch):
     ref, port = grids
+    hide_reference_test_policies(monkeypatch)
     assert registered_mechanisms() == jregistered_mechanisms()
     a, b = port.device_report, ref.device_report
     assert a.n_cells == b.n_cells == len(registered_mechanisms()) * len(MIXES) * 2

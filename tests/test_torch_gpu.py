@@ -318,26 +318,33 @@ def test_ssd_scan_bf16_autograd_uses_the_kernels(cuda):
         assert _rel(t.grad, r) < 2e-2
 
 
-@pytest.mark.parametrize("B,Sq,Skv,H,K,D", [
-    (2, 256, 256, 8, 8, 64),    # MHA, the zamba2 shared block's head width
-    (2, 256, 256, 8, 2, 128),   # GQA 4:1
-    (1, 192, 192, 4, 1, 32),    # MQA
-    (2, 200, 200, 4, 2, 64),    # ragged tail tile
-    (1, 64, 200, 4, 2, 64),     # Sq < Skv, end-aligned
+@pytest.mark.parametrize("B,Sq,Skv,H,K,D,Dv", [
+    (2, 256, 256, 8, 8, 64, 64),    # MHA, the zamba2 shared block's head width
+    (2, 256, 256, 8, 2, 128, 128),  # GQA 4:1
+    (1, 192, 192, 4, 1, 32, 32),    # MQA
+    (2, 200, 200, 4, 2, 64, 64),    # ragged tail tile
+    (1, 64, 200, 4, 2, 64, 64),     # Sq < Skv, end-aligned
+    # Dv != D (MLA's training), also counted in `mla_launches`
+    (2, 64, 64, 4, 4, 48, 32),        # reduced deepseek-v2's train step
+    (2, 100, 100, 4, 2, 48, 32),      # ragged, GQA
+    (1, 200, 200, 16, 16, 192, 128),  # full widths, ragged tail tile
+    (2, 256, 256, 8, 2, 192, 128),    # GQA
+    (1, 64, 200, 4, 4, 192, 128),     # Sq < Skv, end-aligned
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_attention_bwd_kernel_vs_plain(cuda, B, Sq, Skv, H, K, D, dtype, causal):
+def test_flash_attention_bwd_kernel_vs_plain(cuda, B, Sq, Skv, H, K, D, Dv, dtype, causal):
     rng = np.random.default_rng(6)
     q = _rnd(rng, (B, Sq, H, D), dtype, cuda)
-    k, v = _rnd(rng, (B, Skv, K, D), dtype, cuda), _rnd(rng, (B, Skv, K, D), dtype, cuda)
-    do = _rnd(rng, (B, Sq, H, D), dtype, cuda)
+    k, v = _rnd(rng, (B, Skv, K, D), dtype, cuda), _rnd(rng, (B, Skv, K, Dv), dtype, cuda)
+    do = _rnd(rng, (B, Sq, H, Dv), dtype, cuda)
     scale = D ** -0.5
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
-    n0 = fa._launch_bwd.launches
+    n0, m0 = fa._launch_bwd.launches, fa._launch_bwd.mla_launches
     got = fa._launch_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
     torch.cuda.synchronize()
     assert fa._launch_bwd.launches == n0 + 1
+    assert fa._launch_bwd.mla_launches == m0 + (Dv != D)
     ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(),
                                        causal=causal, scale=scale)
     for name, g, r, t in zip(("dq", "dk", "dv"), got, ref, (q, k, v)):
@@ -359,6 +366,25 @@ def test_flash_attention_autograd_uses_the_kernels(cuda):
     ref = fa.flash_attention_bwd_plain(qd, kd, vd, 2 * fa.flash_attention_plain(qd, kd, vd))
     for t, r in zip((q, k, v), ref):
         assert _rel(t.grad, r) < 1e-4
+
+
+@pytest.mark.parametrize("D,Dv", [(48, 32), (192, 128)])
+def test_flash_attention_autograd_with_dv_not_d_uses_the_kernels(cuda, D, Dv):
+    """MLA's training: a Dv != D call that needs a gradient runs the forward
+    and the backward kernels (f32, held to the plain version at 1e-4)."""
+    rng = np.random.default_rng(8)
+    q = _rnd(rng, (2, 96, 4, D), torch.float32, cuda).requires_grad_(True)
+    k = _rnd(rng, (2, 96, 4, D), torch.float32, cuda).requires_grad_(True)
+    v = _rnd(rng, (2, 96, 4, Dv), torch.float32, cuda).requires_grad_(True)
+    n0 = (fa.flash_attention.mla_launches, fa._launch_bwd.mla_launches)
+    ops.attention(q, k, v, causal=True).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.mla_launches, fa._launch_bwd.mla_launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    ref = fa.flash_attention_bwd_plain(qd, kd, vd, 2 * fa.flash_attention_plain(qd, kd, vd))
+    for t, r in zip((q, k, v), ref):
+        assert t.grad.shape == t.shape and _rel(t.grad, r) < 1e-4
 
 
 def test_flash_attention_without_grad_writes_no_logsumexp(cuda):

@@ -228,24 +228,24 @@ def _shape_refused(check, *args) -> bool:
                                        (6, 4, 2, None), (4, 2, 1, None), (4, 2, 2, 32),
                                        (4, 4, 2, 128)])
 def test_flash_attention_supports_is_its_check(D, H, K, Bk, Dv):
-    """The forward takes D == Dv in (32, 64, 128) and MLA's (192, 128) and
-    (48, 32); the backward D == Dv alone."""
+    """The forward and the backward take D == Dv in (32, 64, 128) and MLA's
+    (192, 128) and (48, 32), and nothing else."""
     q, k = torch.zeros((2, 8, H, D)), torch.zeros((Bk, 8, K, D))
     v = torch.zeros((Bk, 8, K, Dv or D))
     ok = fa.supports(q, k, v)
-    assert ok == (not _shape_refused(fa._check, "flash_attention", q, k, v))
     pairs = {(32, 32), (64, 64), (128, 128), (192, 128), (48, 32)}
     assert ok == ((D, Dv or D) in pairs and H % K == 0 and Bk == 2)
-    ok_bwd = fa.supports(q, k, v, backward=True)
-    assert ok_bwd == (not _shape_refused(fa._check, "flash_attention_bwd", q, k, v, True))
-    assert ok_bwd == (ok and (Dv or D) == D)
+    for kernel in ("flash_attention", "flash_attention_bwd"):
+        assert ok == (not _shape_refused(fa._check, kernel, q, k, v))
 
 
 def test_flash_attention_with_dv_not_d_routes_to_the_kernel_and_has_no_backward(monkeypatch):
     """MLA's prefill (Dv != D) goes through `flash_attention`: on a CPU
-    tensor its plain version, equal to naive_attention; off the CPU a call
-    that needs a gradient raises before any launch (no backward instance
-    for Dv != D)."""
+    tensor its plain version, equal to naive_attention.  Off the CPU a call
+    that needs a gradient goes to the kernels, which have MLA's pairs
+    (here: no card, so the device is refused before any launch); a Dv != D
+    pair they have no instance for (no backward, no forward) raises for
+    its shapes before any launch."""
     rng = np.random.default_rng(7)
     q, k = (torch.from_numpy(rng.standard_normal((2, 24, 4, 48)).astype(np.float32))
             for _ in range(2))
@@ -257,10 +257,15 @@ def test_flash_attention_with_dv_not_d_routes_to_the_kernel_and_has_no_backward(
     assert calls == [1] and o.shape == (2, 24, 4, 32)
     assert _err(ref.naive_attention(q, k, v, causal=True, scale=0.2).numpy(), o) == 0
     qm, km, vm = (t.to("meta").requires_grad_(True) for t in (q, k, v))
-    before = (fa.flash_attention.launches, fa.flash_attention.mla_launches)
-    with pytest.raises(ValueError, match="flash_attention_bwd: unsupported shapes"):
+    before = (fa.flash_attention.launches, fa.flash_attention.mla_launches,
+              fa._launch_bwd.launches, fa._launch_bwd.mla_launches)
+    with pytest.raises(ValueError, match="flash_attention: no kernel for device meta"):
         fa.flash_attention(qm, km, vm, causal=True)
-    assert (fa.flash_attention.launches, fa.flash_attention.mla_launches) == before
+    q64 = torch.zeros((2, 24, 4, 64), device="meta", requires_grad=True)
+    with pytest.raises(ValueError, match="flash_attention: unsupported shapes"):
+        fa.flash_attention(q64, q64, vm, causal=True)   # (D, Dv) = (64, 32)
+    assert (fa.flash_attention.launches, fa.flash_attention.mla_launches,
+            fa._launch_bwd.launches, fa._launch_bwd.mla_launches) == before
 
 
 @pytest.mark.parametrize("D,Dv", [(16, 16), (32, 32), (64, 128), (128, 32), (48, 64),

@@ -29,6 +29,30 @@ PKGS = (SimpleNamespace(name="repro", runtime=jruntime, policy=jpolicy),
         SimpleNamespace(name="repro_torch", runtime=truntime, policy=tpolicy))
 
 
+def hide_reference_test_entries(mp, *where):
+    """Hide the `_TEST_*` entries that the reference's own tests register in
+    the shared worker process and never remove (`tests/test_policy_api.py`,
+    `tests/test_structures.py`, `tests/test_workloads_api.py`), for as long
+    as `mp` holds.  `where` holds (module, attribute) pairs, each naming a
+    registry dict (or a dict of such dicts): a comparison with the port's
+    registries then sees the built-in names alone, compared exactly.  The
+    port's test modules that compare registries import this one helper."""
+    def keep(d):
+        return {k: keep(v) if isinstance(v, dict) else v
+                for k, v in d.items() if not k.startswith("_TEST_")}
+    for mod, name in where:
+        mp.setattr(mod, name, keep(getattr(mod, name)))
+
+
+def hide_reference_test_policies(mp):
+    """The reference's policy registry and mechanism factories without their
+    `_TEST_*` entries (a leaked arrival policy adds mechanisms to
+    `registered_mechanisms()`)."""
+    jpolicy._ensure_builtins()
+    hide_reference_test_entries(mp, (jpolicy, "_REGISTRY"),
+                                (jpolicy, "_MECHANISM_FACTORIES"))
+
+
 def both(case, *args):
     """`case(P, *args)` for the reference, then for the port; their outputs
     must be equal.  Returns the port's."""
@@ -93,7 +117,9 @@ def test_import_loads_neither_jax_nor_torch():
     assert proc.returncode == 0, proc.stderr
 
 
-def test_unknown_policies_raise():
+def test_unknown_policies_raise(monkeypatch):
+    hide_reference_test_policies(monkeypatch)
+
     def case(P):
         msgs = []
         for kw in ({"arrival_policy": "NOPE"}, {"elasticity_policy": "NADA"}):
@@ -102,6 +128,20 @@ def test_unknown_policies_raise():
             msgs.append(str(e.value))
         return msgs
     both(case)
+
+
+def test_unknown_policies_raise_beside_a_leaked_test_policy(monkeypatch):
+    """A `_TEST_*` arrival policy left in the reference's registry, as its
+    own tests leave theirs, does not reach the comparison of the two
+    packages' UnknownPolicyError messages (which list the registered
+    names).  The registration is undone after the test."""
+    jpolicy._ensure_builtins()
+
+    class Leaked(jpolicy.get_policy("arrival", "SPAA").__class__):
+        pass
+    monkeypatch.setitem(jpolicy._REGISTRY["arrival"], "_TEST_LEAKED", Leaked)
+    assert "_TEST_LEAKED" in jpolicy.registered_policies("arrival")
+    test_unknown_policies_raise(monkeypatch)
 
 
 def test_default_policy_pairing():

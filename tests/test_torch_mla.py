@@ -365,6 +365,37 @@ def test_train_step_matches_jax(rigs):
     jax.tree.map(_close, jstate.params, state.params)
 
 
+def test_train_grads_match_jax_through_the_kernels_shapes(rigs, monkeypatch):
+    """The gradients of one reduced train step (2 x 64 tokens, f32), leaf by
+    leaf within 1e-4 of the reference's `jax.grad` of its `loss_fn` (its
+    jnp path: the reference has no VJP of its own).  Every attention call
+    on the way needs a gradient and has a shape the kernels take, forward
+    and backward alike: (D, Dv) = (48, 32), in MLA_HEAD_DIMS beside the full
+    width's (192, 128), so on the card each launches the hand-written
+    forward and backward (chip_smoke's MLA training phases; the card cases
+    of `tests/test_torch_gpu.py`)."""
+    jcfg, cfg, jp, tp = _rig(rigs)
+    jb = jsynthetic_batch(jcfg, 2, 64, step=1)
+    tb = synthetic_batch(cfg, 2, 64, step=1, device="cpu")
+    (jloss, _), jg = _jit(jax.value_and_grad(lambda p, b: jmodel.loss_fn(p, b, jcfg),
+                                              has_aux=True), jp, jb)
+    calls, orig = [], fa.flash_attention_plain
+    monkeypatch.setattr(fa, "flash_attention_plain", lambda q, k, v, **kw: calls.append(
+        (q, k, v)) or orig(q, k, v, **kw))
+    live = jax.tree.map(lambda t: t.clone().requires_grad_(True), tp)
+    loss, _ = model.loss_fn(live, tb, cfg)
+    leaves = list(tree_leaves(live))
+    grads = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+    _close(jloss, loss)
+    jax.tree.map(lambda j, t: _close(j, grads[id(t)]), jg, live)
+    assert len(calls) == cfg.n_layers
+    for q, k, v in calls:
+        assert q.requires_grad and fa.supports(q, k, v)
+        assert (q.shape[-1], v.shape[-1]) == (48, 32) in fa.MLA_HEAD_DIMS
+    full = get_config(ARCH).mla
+    assert (full.d_nope + full.d_rope, full.d_v) == (192, 128) in fa.MLA_HEAD_DIMS
+
+
 # ---------------------------------------------------- launches and the CLI
 def test_mla_launches_no_kernel_and_the_cli_serves_it(monkeypatch):
     """On the CPU MLA launches no kernel: its prefill's attention (Dv != D)

@@ -27,6 +27,7 @@ from repro_torch.core import (MECHANISMS, Experiment, Scenario, SimConfig,  # no
                               collect, generate, get_scenario, registered_scenarios,
                               registered_sources, registered_transforms, trace_sha256)
 from repro_torch.core.workloads.swf import parse_swf  # noqa: E402
+from test_torch_live_cluster import hide_reference_test_entries  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 SAMPLE_SWF = str(ROOT / "tests" / "data" / "sample.swf")
@@ -48,7 +49,16 @@ def _preset(get, name):
         else get(name, n_jobs=200)
 
 
-def test_registries_are_the_references():
+def hide_reference_test_workloads(mp):
+    """The reference's workload registries (sources, transforms, scenarios)
+    without their `_TEST_*` entries."""
+    JW.registered_sources()  # the built-ins are registered on first use
+    hide_reference_test_entries(mp, (JW.base, "_SOURCES"), (JW.base, "_TRANSFORMS"),
+                                (JW.presets, "_PRESETS"))
+
+
+def test_registries_are_the_references(monkeypatch):
+    hide_reference_test_workloads(monkeypatch)
     assert registered_scenarios() == JW.registered_scenarios()
     assert registered_sources() == JW.registered_sources()
     assert registered_transforms() == JW.registered_transforms()
