@@ -319,11 +319,19 @@ Phases, in order; any failure raises and the script exits non-zero:
                 cut to 2, and the reduced olmoe-1b-7b train cell on 4 x 2.
                 Prints per-device argument, output and peak bytes, FLOPs and
                 collectives (counts from a trace); fails unless both trace.
+  29. mesh train -- phase 7's cell through the multi-device path on one
+                NCCL rank: `runtime/ranks.py` spawns a rank process on
+                cuda:0, which runs `launch.train.main(... "--mesh", "1x1")`
+                (the state and batches as DTensors, the kernels through
+                `local_map`).  Counts zeroed and read in the rank; asserts
+                phase 7's launches, its losses within 2e-2 relative and no
+                launch in this process; prints both paths' step seconds and
+                peak memory, paired.
   8. a JSON line {"decision_sweep": [...]} (phase 12's rows), a JSON line
      {"campaign_sweep": [...]} (phase 16's), then a JSON line {"kernels":
      [...]} with each kernel's launches in phases 5, 7, 9, 10, 11, 14, 15,
-     16, 18, 19, 21, 23, 24, 25 and 27 and its numbers at its main path's
-     shapes.
+     16, 18, 19, 21, 23, 24, 25, 27 and 29 and its numbers at its main
+     path's shapes.
   last, the line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package `repro`.
@@ -1261,11 +1269,16 @@ def hybrid_serve_parity(torch):
 
 
 # ----------------------------------------------------------------- 7. train
+# Phase 7's cell, which phase 29 trains again on one NCCL rank under a mesh
+TRAIN_ARGV = ["--arch", "zamba2-1.2b", "--steps", "3", "--batch", "8", "--seq", "2048"]
+
+
 def full_width_train(torch, fa, ssd):
+    """Returns (each kernel's launches, `launch.train.main`'s stats)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import main as train_main
 
-    argv = ["--arch", "zamba2-1.2b", "--steps", "3", "--batch", "8", "--seq", "2048"]
+    argv = TRAIN_ARGV
     counters = {"flash_attention": fa.flash_attention, "flash_attention_bwd": fa._launch_bwd,
                 "ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd._launch_bwd}
     for fn in counters.values():
@@ -1288,7 +1301,7 @@ def full_width_train(torch, fa, ssd):
     print(json.dumps({"step_seconds": stats["step_seconds"],
                       "tokens_per_s": stats["tokens_per_s"],
                       "max_memory_allocated": stats["max_memory_allocated"]}))
-    return launches
+    return launches, stats
 
 
 # ------------------------------------------------------------- 9. live seam
@@ -1419,22 +1432,9 @@ def _zeroed_counters(fa, fd, ssd):
     them (the SSD forward's final-state launches as ssd_scan_final_state,
     flash_attention's Dv != D launches as flash_attention_mla, and its
     backward's as flash_attention_bwd_mla)."""
-    counters = {"flash_attention": fa.flash_attention, "flash_decode": fd.flash_decode,
-                "ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd._launch_bwd,
-                "flash_attention_bwd": fa._launch_bwd}
-    for fn in counters.values():
-        fn.launches = 0
-    ssd.ssd_scan.final_state_launches = 0
-    fa.flash_attention.mla_launches = 0
-    fa._launch_bwd.mla_launches = 0
-
-    def read():
-        out = {name: fn.launches for name, fn in counters.items()}
-        out["ssd_scan_final_state"] = ssd.ssd_scan.final_state_launches
-        out["flash_attention_mla"] = fa.flash_attention.mla_launches
-        out["flash_attention_bwd_mla"] = fa._launch_bwd.mla_launches
-        return out
-    return read
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    return launch_counts
 
 
 def _no_mla_launches(fa, launches: dict, what: str) -> None:
@@ -3207,6 +3207,60 @@ def dry_run_cells(torch, fa, fd, ssd) -> list:
     return cells
 
 
+# ------------------------------------------------------ 29. train on a rank
+MESH_TRAIN_REL = 2e-2   # bf16 losses, the mesh path against phase 7's
+
+
+def mesh_train(torch, fa, fd, ssd, one_launches: dict, one_stats: dict) -> dict:
+    """Phase 7's cell again through the multi-device path, on one NCCL
+    rank: `runtime/ranks.py` spawns a rank process on cuda:0 (the spawn, the
+    TCPStore rendezvous and NCCL's initialisation on the card), which runs
+    `launch.train.main(TRAIN_ARGV + ["--mesh", "1x1"])`: the state placed as
+    DTensors by `tree_shardings`, each batch by `batch_sharding`, the kernels
+    reached through `local_map` (a kernel's wrapper refuses a DTensor).
+    The rank's counts are zeroed just before and read just after, in the
+    rank; this process launches nothing.  Fails unless the launches equal
+    phase 7's (so every attention and SSD call launched its kernel: on the
+    card no plain version is reachable) and the losses are phase 7's within
+    MESH_TRAIN_REL.  Prints both paths' step seconds and peak memory, paired:
+    DTensor's host overhead is recorded, not claimed.  Returns the launches."""
+    import gc
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.runtime.ranks import RankGroup
+
+    gc.collect()
+    torch.cuda.empty_cache()     # the rank's own process needs phase 7's memory
+    here = _zeroed_counters(fa, fd, ssd)
+    t0 = time.perf_counter()
+    with RankGroup(["cuda:0"], timeout=600.0) as rank:
+        start_s = time.perf_counter() - t0
+        rank.call(reset_launch_counts)
+        stats = rank.call(train_main, TRAIN_ARGV + ["--mesh", "1x1"])
+        launches = rank.call(launch_counts)
+    _expect_launches(here(), "mesh train (the calling process)")
+    print(json.dumps({"mesh_train": stats, "launches": launches, "rank_start_s": start_s}),
+          flush=True)
+    print(json.dumps({"paired": {
+        "step_seconds": {"one_device": one_stats["step_seconds"],
+                         "mesh_1x1": stats["step_seconds"]},
+        "max_memory_allocated": {"one_device": one_stats["max_memory_allocated"],
+                                 "mesh_1x1": stats["max_memory_allocated"]},
+        "losses": {"one_device": one_stats["losses"], "mesh_1x1": stats["losses"]}}}),
+        flush=True)
+    if stats["mesh"] != {"data": 1, "model": 1}:
+        raise AssertionError(f"mesh train ran on {stats['mesh']}, not 1 x 1")
+    want = dict(one_launches)
+    _expect_launches(launches, "mesh train", **want)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(stats["losses"], one_stats["losses"]))
+    print(f"losses {stats['losses']} vs phase 7's {one_stats['losses']}: rel {rel:.3e}")
+    if len(stats["losses"]) != len(one_stats["losses"]) or not rel <= MESH_TRAIN_REL:
+        raise AssertionError(f"mesh train losses {stats['losses']} vs phase 7's "
+                             f"{one_stats['losses']}: rel {rel} > {MESH_TRAIN_REL}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3265,7 +3319,7 @@ def main(argv=None) -> int:
     hybrid_serve_parity(torch)
 
     phase("7. full-width zamba2-1.2b train (bf16, 38 layers, 3 steps)")
-    train_launches_seen = full_width_train(torch, fa, ssd)
+    train_launches_seen, train_stats = full_width_train(torch, fa, ssd)
 
     phase(f"9. live seam (CUA&SPAA, 8 slots on one card: zamba2-1.2b cut to "
           f"{LIVE_TRAIN_LAYERS} layers x 3 jobs, llama3-8b serving)")
@@ -3350,6 +3404,10 @@ def main(argv=None) -> int:
           f"width, {DRYRUN_LAYERS} layers, on 16 x 16; reduced olmoe-1b-7b train on 4 x 2)")
     dry_run_cells(torch, fa, fd, ssd)
 
+    phase("29. phase 7's cell on one NCCL rank under a 1 x 1 mesh (runtime/ranks.py, "
+          "launch/train.py --mesh 1x1)")
+    mesh_train_launches = mesh_train(torch, fa, fd, ssd, train_launches_seen, train_stats)
+
     phase("8. kernels")
     main_shape = {
         "flash_attention": ("bfloat16", dict(B=8, S=512, H=32, K=8, D=128)),
@@ -3397,7 +3455,8 @@ def main(argv=None) -> int:
                    "audio_serve": audio_serve_launches[name],
                    "vlm_train": vl_train_launches["vlm"][name],
                    "audio_train": vl_train_launches["audio"][name],
-                   "mla_train": mla_train_launches[name]}
+                   "mla_train": mla_train_launches[name],
+                   "mesh_train": mesh_train_launches[name]}
         kernels.append({"name": name, "route": "cuda", "source": meta[name][0],
                         "replaces": meta[name][1], "launches": sum(by_path.values()),
                         "launches_by_path": by_path,

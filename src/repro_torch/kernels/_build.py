@@ -131,6 +131,16 @@ def sass_counts(name: str) -> Dict[str, Dict[str, int]]:
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DtypeCode
 
 
+def refuse_dtensors(kernel: str, *tensors) -> None:
+    """Raise if any input is a DTensor, on any device: a kernel takes one
+    rank's own shards (`models.dist.local_heads` and `local_ssd` hand them
+    over under a mesh), never the distributed tensor around them."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{kernel}: got a DTensor; under a mesh a kernel takes "
+                        f"each rank's own shards (models.dist.local_heads, local_ssd)")
+
+
 def check_inputs(kernel: str, *args) -> int:
     """Validate tensors for a kernel launch: one CUDA device, contiguous,
     16-byte aligned.  Each argument is a tensor, or a (tensor, dtype) pair

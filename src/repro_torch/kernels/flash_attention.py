@@ -159,6 +159,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     H % K == 0.  Returns (B, Sq, H, Dv) in q's dtype, differentiable in q,
     k and v (the backward is `_launch_bwd`'s kernels).  With no gradient to
     follow, as in serving, the forward writes no logsumexp."""
+    _build.refuse_dtensors("flash_attention", q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)

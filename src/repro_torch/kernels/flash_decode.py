@@ -86,6 +86,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     `flash_decode.launches` counts the calls that launch the kernel (one a
     call), so a serve counts layers x decode steps."""
+    _build.refuse_dtensors("flash_decode", q, k, v)
     B, sq, H, D = q.shape
     _, S, K, Dv = v.shape
     if sq != 1:

@@ -238,6 +238,7 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256, return_final_state: bool = 
     y (b, s, h, p) in x's dtype, differentiable in all six inputs; with
     return_final_state, (y, the f32 (b, h, p, n) state after the last
     token), the state not differentiable."""
+    _build.refuse_dtensors("ssd_scan", x, dt, A, B, C, D)
     s = x.shape[1]
     c = min(chunk, s)
     assert s % c == 0, f"seq {s} not divisible by chunk {c}"

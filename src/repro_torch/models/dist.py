@@ -6,7 +6,9 @@ itself.  With a `DeviceMesh` set (a dry run on the fake backend, or real
 ranks) activations are DTensors, and a constraint redistributes one to the
 named placements: the batch over the dp axes (`pod` x `data`, or with them
 `model` under layout="fsdp"), heads over `model`, the rest replicated, so
-block boundaries keep the reference's layout.
+block boundaries keep the reference's layout.  No hand-written kernel sees
+a DTensor: they take raw pointers, so attention (`local_heads`) and the SSD
+scan (`local_ssd`) run on each rank's own shards through `local_map`.
 """
 from __future__ import annotations
 
@@ -74,20 +76,34 @@ def constrain_tree(tree, shardings):
             else v.redistribute(_MESH, shardings[k]) for k, v in tree.items()}
 
 
+def _heads_axis(n_heads: int):
+    """"model" where it shards heads (TP layout, the axis present and
+    dividing n_heads), else None."""
+    if "model" in _BATCH_AXES or "model" not in _MESH.mesh_dim_names:
+        return None
+    return "model" if n_heads % _size(("model",)) == 0 else None
+
+
 def constrain_heads(x, head_axis: int = 2):
     """Pin (B, S, H, D)-like activations: batch on dp axes, heads on model
     (TP layout only, and only when H divides the axis)."""
-    if _MESH is None or x is None or "model" in _BATCH_AXES:
-        return x
-    if "model" not in _MESH.mesh_dim_names:
-        return x
-    if x.shape[head_axis] % _size(("model",)):
+    if _MESH is None or x is None or _heads_axis(x.shape[head_axis]) is None:
         return x
     spec = [None] * x.ndim
     if x.shape[0] % _size(_BATCH_AXES) == 0:
         spec[0] = "batch"
     spec[head_axis] = "model"
     return constrain(x, *spec)
+
+
+def replicated(t, like):
+    """t (the same on every rank: a position or rotation table) as a
+    replicated DTensor on the mesh of `like` when `like` is a DTensor, so
+    the two combine; t itself otherwise."""
+    if not isinstance(like, DTensor):
+        return t
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
 def unshard_dp(w):
@@ -125,9 +141,45 @@ def local_heads(fn, q, k, v):
     spec = [None] * 4
     if q.shape[0] % _size(_BATCH_AXES) == 0:
         spec[0] = _flat(_BATCH_AXES)
-    if "model" in _MESH.mesh_dim_names and "model" not in _BATCH_AXES and \
-            q.shape[2] % _size(("model",)) == 0 and k.shape[2] % _size(("model",)) == 0:
-        spec[2] = "model"
+    spec[2] = _heads_axis(q.shape[2]) and _heads_axis(k.shape[2])
     pl = placements(spec, _MESH)
     return local_map(lambda *a: (fn(*a),), out_placements=(pl,), in_placements=(pl, pl, pl),
                      device_mesh=_MESH, redistribute_inputs=True)(q, k, v)[0]
+
+
+def local_ssd(fn, x, dt, A, B, C, D, *, final_state: bool = False):
+    """fn(x, dt, A, B, C, D) (the SSD scan: x (b, s, h, p), dt (b, s, h),
+    A and D (h,), B and C (b, s, n)) on each rank's own shards when a mesh
+    is set: the batch over the batch axes and the heads over `model` where
+    they divide, B and C batch-sharded and replicated over `model`, A and D
+    over `model`; y, and with final_state the (b, h, p, n) state fn returns
+    beside it, keep x's layout.  The scan is independent across batch rows
+    and heads, so this moves nothing beyond the redistribution of its
+    inputs.  What ranks share takes a partial gradient: dB and dC sum over
+    the heads of each `model` rank, dA and dD over the rows of each batch
+    shard.  Without a mesh, fn(x, dt, A, B, C, D)."""
+    if _MESH is None or not isinstance(x, DTensor):
+        return fn(x, dt, A, B, C, D)
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding import placements
+    batch = _flat(_BATCH_AXES) if x.shape[0] % _size(_BATCH_AXES) == 0 else None
+    heads = _heads_axis(x.shape[2])
+    x_pl = placements((batch, None, heads, None), _MESH)
+    dt_pl = placements((batch, None, heads), _MESH)
+    bc_pl = placements((batch,), _MESH)
+    h_pl = placements((heads,), _MESH)
+
+    def partial(pl, axes):
+        return tuple(Partial() if a in axes else p
+                     for a, p in zip(_MESH.mesh_dim_names, pl))
+    bc_grad = partial(bc_pl, ("model",) if heads else ())
+    h_grad = partial(h_pl, _BATCH_AXES if batch else ())
+    outs = (x_pl, placements((batch, heads), _MESH)) if final_state else (x_pl,)
+    out = local_map(lambda *a: fn(*a) if final_state else (fn(*a),),
+                    out_placements=outs,
+                    in_placements=(x_pl, dt_pl, h_pl, bc_pl, bc_pl, h_pl),
+                    in_grad_placements=(x_pl, dt_pl, h_grad, bc_grad, bc_grad, h_grad),
+                    device_mesh=_MESH, redistribute_inputs=True)(x, dt, A, B, C, D)
+    return out if final_state else out[0]

@@ -73,7 +73,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     freqs = rope_freqs(d_rot, theta, x.device)            # (d_rot/2,)
     ang = positions[..., None].float() * freqs            # (..., S, d_rot/2)
     ang = ang[..., None, :]                               # head axis
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    cos, sin = (dist.replicated(t, x) for t in (torch.cos(ang), torch.sin(ang)))
     x1, x2 = xr[..., 0::2].float(), xr[..., 1::2].float()
     out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     out = out.reshape(xr.shape).to(x.dtype)

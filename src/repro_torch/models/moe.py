@@ -129,9 +129,15 @@ def _moe_ep(p: Params, x, cfg: ModelConfig, mesh):
     replicated over `model`, which shards the experts.  Returns (y (B, S,
     d) as x, frac_prob (E,), assigned (E,), T), the last three replicated
     and summed (frac_prob averaged) over the ranks as the reference's
-    collectives do."""
-    import torch.distributed._functional_collectives as funcol
-    from torch.distributed.tensor import Replicate
+    collectives do.
+
+    Each rank's outputs leave `local_map` as partial sums (y over `model`,
+    the rest over every axis; frac_prob, the same on every `model` rank,
+    as its 1/ep share) and DTensor sums them, so the backward is autograd's:
+    each input's gradient is the partial sum of the ranks that used it (x's
+    and the router's over `model`, theirs and the experts' over the dp
+    axes)."""
+    from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
 
     from repro_torch.sharding import placements
@@ -143,11 +149,6 @@ def _moe_ep(p: Params, x, cfg: ModelConfig, mesh):
     n_local = m.n_experts // ep
     n_dp = math.prod(mesh.shape[names.index(a)] for a in ba)
     cap = _capacity(B * S // n_dp, cfg)
-
-    def psum(t, axes):
-        for a in axes:
-            t = funcol.all_reduce(t, "sum", (mesh, names.index(a)))
-        return t
 
     def shard_fn(xs, router, w1, w3, w2):
         T = xs.shape[0] * xs.shape[1]
@@ -166,18 +167,22 @@ def _moe_ep(p: Params, x, cfg: ModelConfig, mesh):
         else:
             y, fp, asg, _ = _moe_local(xs.reshape(T, d), lp, cfg, cap, j * n_local, n_local)
         t = torch.tensor(float(T), device=xs.device)
-        y = psum(y, ("model",))
-        fp = psum(fp, ba) / n_dp                  # the mean over the batch axes
-        asg = psum(asg, ba + ("model",))
-        t = psum(t, ba + ("model",))
-        return y.reshape(xs.shape), fp, asg, t
+        return y.reshape(xs.shape), fp / (n_dp * ep), asg, t
 
+    def over(pl, axes, kind):
+        return tuple(kind if a in axes else q for a, q in zip(names, pl))
     x_pl = placements((dist._flat(ba), None, None), mesh)
     rep = tuple(Replicate() for _ in names)
     ex = placements(("model", None, None), mesh)
-    return local_map(shard_fn, out_placements=(x_pl, rep, rep, rep),
-                     in_placements=(x_pl, rep, ex, ex, ex), device_mesh=mesh,
-                     redistribute_inputs=True)(x, p["router"], p["w1"], p["w3"], p["w2"])
+    x_part = over(x_pl, ("model",), Partial())
+    total = over(rep, names, Partial())
+    y, fp, asg, t = local_map(
+        shard_fn, out_placements=(x_part, total, total, total),
+        in_placements=(x_pl, rep, ex, ex, ex),
+        in_grad_placements=(x_part, total, *(over(ex, ba, Partial()),) * 3),
+        device_mesh=mesh, redistribute_inputs=True)(x, p["router"], p["w1"], p["w3"], p["w2"])
+    return (y.redistribute(mesh, x_pl), fp.redistribute(mesh, rep),
+            asg.redistribute(mesh, rep), t.redistribute(mesh, rep))
 
 
 def moe_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig

@@ -105,11 +105,13 @@ def mamba2_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     A = -torch.exp(p["a_log"])
     if state is None:
         if return_state:
-            y, ssm = kops.ssd_scan(xh, dt, A, B, C, p["d_skip"], chunk=s.chunk,
-                                   return_final_state=True)
+            y, ssm = dist.local_ssd(lambda *a: kops.ssd_scan(
+                *a, chunk=s.chunk, return_final_state=True),
+                xh, dt, A, B, C, p["d_skip"], final_state=True)
             new_state = MambaState(conv_x=cx_state, conv_bc=cbc_state, ssm=ssm)
         else:
-            y = kops.ssd_scan(xh, dt, A, B, C, p["d_skip"], chunk=s.chunk)
+            y = dist.local_ssd(lambda *a: kops.ssd_scan(*a, chunk=s.chunk),
+                               xh, dt, A, B, C, p["d_skip"])
             new_state = None
     else:
         ssm, y = kops.ssd_step(state.ssm, xh[:, 0], dt[:, 0], A, B[:, 0], C[:, 0],

@@ -203,6 +203,32 @@ def tree_shardings(tree, cfg: ModelConfig, mesh):
     return map_with_path(one, tree)
 
 
+def distribute(tree, tree_pl, mesh):
+    """Each tensor leaf of `tree`, whole and the same on every rank, as a
+    DTensor on `mesh` with the placements at its path in `tree_pl`: each
+    rank keeps its own shard (a copy of its own, so the whole leaf can be
+    freed) and nothing moves between ranks."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def one(path, t):
+        pl = at_path(tree_pl, path)
+        d = distribute_tensor(t, mesh, pl, src_data_rank=None)
+        if any(isinstance(p, Shard) for p in pl):
+            d = DTensor.from_local(d.to_local().clone(), mesh, pl, run_check=False,
+                                   shape=d.shape, stride=d.stride())
+        return d
+    return map_with_path(one, tree)
+
+
+def gathered(tree):
+    """Each DTensor leaf of `tree` whole, as a plain tensor on the rank's
+    device (an all-gather over its mesh: every rank of it calls this);
+    other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+    return map_with_path(lambda _, t: t.full_tensor() if isinstance(t, DTensor) else t,
+                         tree)
+
+
 # ---------------------------------------------------------------- batches
 def batch_sharding(tree, mesh, axes: Optional[Tuple[str, ...]] = None):
     """Shard dim 0 (global batch) over the dp axes; replicate the rest."""

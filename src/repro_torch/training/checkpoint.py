@@ -7,6 +7,12 @@ bfloat16 leaves stored as a uint16 view under `key + ".bf16"`, and a
 `latest.txt` manifest (step, then file) written after the file, both
 atomically (write, fsync, rename).  So a checkpoint written by either
 package restores in the other.
+
+On real ranks (a state of DTensors) `save` gathers each leaf whole, rank 0
+alone writes the same file, and every rank waits for it at a barrier;
+`restore(..., placements=, mesh=)` is the reference's `restore(...,
+shardings=)`: each rank reads the file and keeps its own shard of each
+leaf, on a mesh of any size.
 """
 from __future__ import annotations
 
@@ -16,6 +22,11 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as tdist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.launch.mesh import mesh_device
+from repro_torch.sharding import distribute, leaves_with_paths
 
 
 def _map_paths(fn, tree: Any, prefix: str = "") -> Any:
@@ -35,9 +46,12 @@ def _map_paths(fn, tree: Any, prefix: str = "") -> Any:
 
 
 def _flatten(tree: Any) -> Dict[str, np.ndarray]:
+    """The file's arrays; a DTensor leaf gathered whole (a collective)."""
     flat = {}
 
     def put(key: str, leaf: torch.Tensor) -> None:
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:  # npz cannot round-trip bf16
             flat[key + ".bf16"] = t.view(torch.int16).numpy().view(np.uint16)
@@ -59,13 +73,19 @@ def _atomic_write(path: str, write) -> str:
 
 
 def save(path: str, step: int, tree: Any) -> str:
-    """Write `tree` to <path>/step_<n>.npz atomically; returns file path."""
-    os.makedirs(path, exist_ok=True)
+    """Write `tree` to <path>/step_<n>.npz atomically; returns file path.
+    A tree with DTensor leaves is saved by every rank of their mesh
+    together: rank 0 writes, and all return once it has."""
     fname = os.path.join(path, f"step_{step:08d}.npz")
     flat = _flatten(tree)
-    _atomic_write(fname, lambda f: np.savez(f, **flat))
-    _atomic_write(os.path.join(path, "latest.txt"),
-                  lambda f: f.write(f"{step}\n{fname}\n".encode()))
+    ranked = any(isinstance(t, DTensor) for _, t in leaves_with_paths(tree))
+    if not ranked or tdist.get_rank() == 0:
+        os.makedirs(path, exist_ok=True)
+        _atomic_write(fname, lambda f: np.savez(f, **flat))
+        _atomic_write(os.path.join(path, "latest.txt"),
+                      lambda f: f.write(f"{step}\n{fname}\n".encode()))
+    if ranked:
+        tdist.barrier()
     return fname
 
 
@@ -77,9 +97,12 @@ def latest_step(path: str) -> Optional[int]:
         return int(f.readline().strip())
 
 
-def restore(path: str, template: Any, step: Optional[int] = None) -> Any:
+def restore(path: str, template: Any, step: Optional[int] = None, *,
+            placements: Any = None, mesh=None) -> Any:
     """Rebuild `template`'s structure from the checkpoint, each leaf with the
-    template leaf's dtype and device."""
+    template leaf's dtype and device; with `placements` (a tree matching
+    the template's, `sharding.tree_shardings`) each leaf a DTensor on
+    `mesh` holding this rank's own shard, on this rank's device."""
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -90,6 +113,8 @@ def restore(path: str, template: Any, step: Optional[int] = None) -> Any:
                 t = torch.from_numpy(data[key + ".bf16"].view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(np.array(data[key]))
-            return t.to(device=leaf.device, dtype=leaf.dtype)
+            return t.to(device=leaf.device if placements is None else mesh_device(mesh),
+                        dtype=leaf.dtype)
 
-        return _map_paths(load, template)
+        tree = _map_paths(load, template)
+    return tree if placements is None else distribute(tree, placements, mesh)

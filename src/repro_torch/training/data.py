@@ -3,6 +3,9 @@
 The port's counterpart of `repro.training.data`.  Each batch comes from
 numpy seeded by (seed, step), exactly as in the reference, so both packages
 train on the same tokens and an elastic restart resumes the exact stream.
+On a mesh every rank draws the same global batch and keeps its own rows,
+as the reference's `batch_sharding` places them, so the losses of a job on
+n ranks and on one device compare.
 `input_specs` gives a dry run its inputs as meta tensors.
 """
 from __future__ import annotations
@@ -17,13 +20,15 @@ from repro_torch.models.config import ModelConfig, ShapeSpec
 
 
 def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,
-                    step: int = 0, device="cuda") -> TrainBatch:
+                    step: int = 0, device="cuda", mesh=None) -> TrainBatch:
     """One deterministic batch on `device`: a Markov-ish token stream (not
     uniform noise, so losses move during short trainings).  Tokens and
     labels are int64.  A VLM's patch embeddings (B, n_patches, d) and an
     audio model's frame embeddings (B, enc_len, d) are `extra`, drawn after
     the tokens from the same generator as in the reference: N(0, 1) * 0.02
-    in float64, cast to float32."""
+    in float64, cast to float32.  With a `mesh`, each leaf is a DTensor
+    placed by `sharding.batch_sharding` (rows over the batch axes where
+    they divide), each rank keeping its own rows of the same draw."""
     rng = np.random.default_rng((seed * 1_000_003 + step) % (2 ** 63))
     base = rng.integers(0, cfg.vocab, size=(batch, 1), dtype=np.int64)
     drift = rng.integers(-32, 33, size=(batch, seq + 1), dtype=np.int64)
@@ -35,7 +40,11 @@ def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,
     if rows is not None:
         e = rng.standard_normal((batch, rows, cfg.d_model)) * 0.02
         extra = torch.from_numpy(e.astype(np.float32)).to(device)
-    return TrainBatch(tokens=tokens, labels=labels, extra=extra)
+    out = TrainBatch(tokens=tokens, labels=labels, extra=extra)
+    if mesh is None:
+        return out
+    from repro_torch.sharding import batch_sharding, distribute
+    return distribute(out, batch_sharding(out, mesh), mesh)
 
 
 def stream(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,

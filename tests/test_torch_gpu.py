@@ -997,3 +997,30 @@ def test_vlm_and_audio_reduced_serving_on_the_card(cuda, arch):
         assert gt == ct and _err(g, c) < 1e-4
     L = cfg.n_layers
     assert tuple(a - b for a, b in zip(_launch_counts(), n0)) == (L, 0, 6 * L, 0, 0)
+
+
+# ------------------------------------------------ training on one NCCL rank
+def test_mesh_train_on_one_nccl_rank_equals_one_device(cuda):
+    """chip_smoke phase 29 at the reduced size: `launch.train.main` with
+    `--mesh 1x1` on a rank process that `runtime/ranks.py` spawns on the
+    card (NCCL) gives the in-process run's losses within 1e-5 relative (f32,
+    the same seed and batches) and launches the same kernels as often,
+    counted in the rank; the kernels refuse DTensors, so the run also shows
+    that none reached them."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.runtime.ranks import RankGroup
+
+    argv = ["--arch", "zamba2-1.2b", "--reduced", "--steps", "3", "--batch", "4",
+            "--seq", "64"]
+    reset_launch_counts()
+    one = train.main(argv)
+    one_launches = launch_counts()
+    with RankGroup([f"cuda:{torch.cuda.current_device()}"], timeout=300.0) as rank:
+        rank.call(reset_launch_counts)
+        mesh = rank.call(train.main, argv + ["--mesh", "1x1"])
+        launches = rank.call(launch_counts)
+    assert mesh["mesh"] == {"data": 1, "model": 1} and mesh["device"].startswith("cuda")
+    assert launches == one_launches
+    assert launches["ssd_scan"] > 0 and launches["flash_attention_bwd"] > 0
+    np.testing.assert_allclose(mesh["losses"], one["losses"], rtol=1e-5, atol=0)

@@ -16,6 +16,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -236,3 +237,157 @@ def test_port_resumes_the_references_preempt_checkpoint(cfgs, reference):
         for key, arr in flat.items():
             assert np.array_equal(arr, data[key]), key
     assert np.isfinite(job.step()["loss"])
+
+
+# ------------------------------------------------------ a job on gloo ranks
+# Slots that name distinct devices run the job on one rank process each, on
+# an (n, 1) ("data", "model") mesh, as the reference's job runs on n of its 8
+# host devices: the same contracts, from the same params.
+RANKS = [f"cpu:{i}" for i in range(8)]
+
+
+def _ranked_job(cfgs, seed, **kw):
+    job = _job(cfgs, seed, **kw)
+    assert job._ranks is None      # the reference's params wait in this process
+    return job
+
+
+def test_shrink_and_expand_on_ranks_keep_the_params_bit_for_bit(cfgs, reference, tmp_path):
+    """start(4), 3 steps, resize(2), a step, resize(6), a step: the params
+    cross each resize bit for bit, no resize writes a file, the shrink
+    starts no process (its ranks re-form the world) and the expand starts
+    six; the losses and the final state are the reference's within 1e-5."""
+    job = _ranked_job(cfgs, 0, ckpt_dir=str(tmp_path / "ckpt"), ckpt_every=100)
+    try:
+        job.start(RANKS[:4])
+        assert len(job._ranks) == 4
+        losses = [job.step()["loss"] for _ in range(3)]
+        before = _params(job)
+        shrink_cost = job.resize(RANKS[:2])
+        assert len(job._ranks) == 2 and job.devices == [torch.device(d) for d in RANKS[:2]]
+        assert _bit_equal(before, _params(job))
+        losses.append(job.step()["loss"])
+        before = _params(job)
+        job.resize(RANKS[:6])
+        assert len(job._ranks) == 6
+        assert _bit_equal(before, _params(job))
+        losses.append(job.step()["loss"])
+        state = job.state
+    finally:
+        job.close()
+    assert not (tmp_path / "ckpt").exists()
+    shrink, expand = job.resize_parts
+    assert set(shrink) == {"gather_s", "reform_s", "place_s"}
+    assert set(expand) == {"gather_s", "spawn_s", "place_s"}
+    assert job.resize_costs[0] == shrink_cost and all(c > 0 for c in job.resize_costs)
+    ref, out = reference()
+    np.testing.assert_allclose(losses, ref["resize_losses"], **TOL)
+    _close_to(state, out / "resize")
+
+
+def test_preempt_on_ranks_and_resume_on_others_restore_exactly(cfgs, reference, tmp_path):
+    """Preempt with warning on cpu:0-3 after 4 steps (the ranks write the
+    checkpoint and stop), resume on cpu:4-7: step 4, every param bit; the
+    reference's preempt checkpoint resumes on 4 ranks exactly too (every
+    array of the file)."""
+    job = _ranked_job(cfgs, 0, ckpt_dir=str(tmp_path), ckpt_every=100)
+    try:
+        job.start(RANKS[:4])
+        for _ in range(4):
+            job.step()
+        at_preempt = _params(job)
+        job.preempt(warning=True)
+        assert job.devices == () and job._ranks is None
+        assert _bit_equal(at_preempt, _params(job))   # gathered to host memory
+    finally:
+        job.close()
+    _, out = reference()
+    job2 = ElasticJob(1, cfgs[1], kind="malleable", batch=8, seq=32, opt=AdamW(**OPT),
+                      seed=0, ckpt_dir=str(tmp_path))
+    try:
+        job2.resume(RANKS[4:8])
+        assert job2.step_idx == 4 and len(job2._ranks) == 4
+        assert _bit_equal(at_preempt, _params(job2))
+        for ckpt in (tmp_path, out / "preempt"):
+            # the reference's: the restore a resume runs, on the same 4 ranks
+            job2._ranks.call("restore", str(ckpt))
+            flat = checkpoint._flatten(job2.state)
+            with np.load(Path(ckpt) / "step_00000004.npz") as data:
+                assert sorted(flat) == sorted(data.files)
+                for key, arr in flat.items():
+                    assert np.array_equal(arr, data[key]), key
+    finally:
+        job2.close()
+
+
+def test_rank_placements_are_tree_shardings(cfgs):
+    """With fsdp the rules shard the weights over `data`: after start on
+    4 ranks each rank's placements equal `sharding.tree_shardings` leaf by
+    leaf, some of them sharded, and a step's loss is the one-device job's
+    within 1e-5."""
+    from types import SimpleNamespace
+
+    from repro_torch.sharding import leaves_with_paths, at_path, tree_shardings
+    jcfg, cfg = cfgs
+    cfg = cfg.with_(fsdp=True)
+    one = _job((jcfg, cfg), 0)
+    one.start(["cpu"])
+    job = _ranked_job((jcfg, cfg), 0)
+    try:
+        job.start(RANKS[:4])
+        want = tree_shardings(one.state, cfg,
+                              SimpleNamespace(shape=(4, 1), mesh_dim_names=("data", "model")))
+        got = job._ranks.results("placements")
+        paths = [p for p, _ in leaves_with_paths(one.state)]
+        assert len(got) == 4 and paths
+        for rank_pl in got:
+            for path in paths:
+                assert tuple(at_path(rank_pl, path)) == tuple(at_path(want, path)), path
+        assert any("Shard" in repr(at_path(want, p)) for p in paths)
+        np.testing.assert_allclose(job.step()["loss"], one.step()["loss"], **TOL)
+    finally:
+        job.close()
+
+
+def test_a_rank_that_raises_fails_start_within_the_timeout(cfgs):
+    """Every rank of a job whose config no rank can build raises: start
+    raises RankError, with the rank's own error, well inside the ranks'
+    timeout, and leaves no rank running."""
+    from repro_torch.runtime.ranks import RANK_TIMEOUT, RankError
+    bad = cfgs[1].with_(family="no-such-family")
+    job = ElasticJob(1, bad, batch=8, seq=32, opt=AdamW(**OPT))
+    t0 = time.monotonic()
+    with pytest.raises(RankError, match="ValueError: no-such-family"):
+        job.start(RANKS[:2])
+    assert time.monotonic() - t0 < RANK_TIMEOUT / 10
+    assert job._ranks is None or len(job._ranks) == 0
+
+
+def test_live_cluster_drives_a_job_on_ranks_unchanged(cfgs):
+    """`LiveCluster` (the reference's scheduling, copied) on 3 slots that
+    name distinct CPU devices: a malleable job starts on 3 ranks, an
+    on-demand arrival shrinks it to 2 (SPAA), the release expands it back
+    to 3, and it finishes its steps; its losses are those of the same job
+    on one device within 1e-5."""
+    from repro_torch.runtime import LiveCluster
+    one = _job(cfgs, 3)
+    one.start(["cpu"])
+    want = [one.step()["loss"] for _ in range(3)]
+    cluster = LiveCluster(RANKS[:3], arrival_policy="SPAA")
+    job = _ranked_job(cfgs, 3)
+    try:
+        info = cluster.submit(job, min_nodes=2, max_nodes=3, target_steps=3)
+        assert len(job._ranks) == 3
+        cluster.step_all(1)
+        od = cluster.acquire_for_ondemand(1)
+        assert len(job._ranks) == 2 and len(info.node_ids) == 2
+        cluster.step_all(1)
+        cluster.release_ondemand(od)
+        assert len(job._ranks) == 3
+        cluster.step_all(1)
+    finally:
+        job.close()
+    assert [e["event"] for e in cluster.log] == ["start", "shrink", "od_acquire", "expand",
+                                                 "finish"]
+    assert info.status == "done" and len(job.resize_costs) == 2
+    np.testing.assert_allclose(job.losses, want, **TOL)
