@@ -1,0 +1,12 @@
+"""flash_attention's prefill calls in the traced batches: their roofline time
+over their kernels' device time, in percent."""
+from perfbench import readers
+
+LAYER = "kernels"
+UNIT = "%"
+MOVES = "ttft_p90_ms"
+SOURCE = "device_trace"
+
+
+def read(rec):
+    return readers.roofline(rec, "attn_fwd")
