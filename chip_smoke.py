@@ -1841,9 +1841,10 @@ def moe_parity(torch):
 def profile_call(torch, fn):
     """Run fn once under torch.profiler (CUDA activity) from a synchronised
     device to the device done with it.  Returns (fn's result, {"wall_ms":
-    the window on the host clock, "busy_ms": the device time of its CUDA
-    operations, "busy_share", "launches", "top_ms": the eight costliest
-    operations by name, [count, ms]})."""
+    the window on the host clock, "busy_ms": the time in which any of its
+    CUDA operations ran (the union of their intervals, user annotations left
+    out), "busy_share", "launches", "top_ms": the eight costliest operations
+    by name, [count, ms]})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1852,12 +1853,17 @@ def profile_call(torch, fn):
         out = fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     by_name = {}
     for e in ops:
         n, us = by_name.get(_kernel_name(e.name), (0, 0.0))
         by_name[_kernel_name(e.name)] = (n + 1, us + e.device_time_total)
-    busy_ms = sum(e.device_time_total for e in ops) / 1e3
+    busy_us, end = 0.0, float("-inf")
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in ops):
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+    busy_ms = busy_us / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     return out, {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
                  "launches": len(ops), "top_ms": {k: [n, us / 1e3] for k, (n, us) in top}}

@@ -45,6 +45,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tracing
 from . import dist
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -80,6 +81,7 @@ def _n_layers(stack: Params) -> int:
 
 
 # ============================================================== block
+@tracing.spanned("models.block", device_time="backward")
 def _block_fwd(p: Params, x, cfg: ModelConfig, *, positions, cache=None,
                cache_index=None, causal=True, return_kv=False):
     """One block: GQA attention (MLA with cfg.mla), then SwiGLU or, in a

@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from . import dist
 from .config import ModelConfig, torch_dtype
 from .layers import _init, init_swiglu, swiglu_fwd
@@ -97,29 +98,32 @@ def _moe_local(x2d: torch.Tensor, p: Params, cfg: ModelConfig, capacity: int,
     T, d = x2d.shape
     k, E = m.top_k, n_local or m.n_experts
     ct = x2d.dtype
-    probs, gate, eid, keep, slot = _route(x2d, p["router"], cfg, capacity)
-    # each expert's assignments, summed as exact small integers (bincount's
-    # output size reads the data)
-    assigned = torch.zeros(m.n_experts, device=eid.device).index_add_(
-        0, eid, torch.ones(eid.shape, device=eid.device))
-    if E != m.n_experts:   # this rank's slice of the experts
-        keep = keep & (eid >= e_start) & (eid < e_start + E)
-        slot = torch.where(keep, slot, capacity)
-        eid = torch.where(keep, eid - e_start, 0)
-    # dispatch: each token's row, k times (a = t * k + j), into its slot
-    xs = x2d[:, None, :].expand(T, k, d).reshape(T * k, d)
-    buf = torch.index_put(x2d.new_zeros((E, capacity + 1, d)), (eid, slot), xs)
-    buf = buf[:, :capacity]
-    # the experts, batched
-    g = torch.bmm(buf, p["w1"].to(ct))
-    u = torch.bmm(buf, p["w3"].to(ct))
-    h = torch.bmm(F.silu(g) * u, p["w2"].to(ct))                  # (E, C, d)
-    # combine: a dropped assignment reads a real row and contributes 0,
-    # as the reference's zero trash row does
-    rows = h[eid, slot.clamp(max=capacity - 1)]
-    contrib = torch.where(keep[:, None], rows * gate.to(ct)[:, None], 0)
-    y = contrib.reshape(T, k, d).sum(dim=1)
-    frac_prob = probs.mean(dim=0)
+    with tracing.span("models.moe.route"):
+        probs, gate, eid, keep, slot = _route(x2d, p["router"], cfg, capacity)
+        frac_prob = probs.mean(dim=0)
+        # each expert's assignments, summed as exact small integers
+        # (bincount's output size reads the data)
+        assigned = torch.zeros(m.n_experts, device=eid.device).index_add_(
+            0, eid, torch.ones(eid.shape, device=eid.device))
+        if E != m.n_experts:   # this rank's slice of the experts
+            keep = keep & (eid >= e_start) & (eid < e_start + E)
+            slot = torch.where(keep, slot, capacity)
+            eid = torch.where(keep, eid - e_start, 0)
+    with tracing.span("models.moe.dispatch"):
+        # each token's row, k times (a = t * k + j), into its slot
+        xs = x2d[:, None, :].expand(T, k, d).reshape(T * k, d)
+        buf = torch.index_put(x2d.new_zeros((E, capacity + 1, d)), (eid, slot), xs)
+        buf = buf[:, :capacity]
+    with tracing.span("models.moe.experts"):
+        g = torch.bmm(buf, p["w1"].to(ct))
+        u = torch.bmm(buf, p["w3"].to(ct))
+        h = torch.bmm(F.silu(g) * u, p["w2"].to(ct))              # (E, C, d)
+    with tracing.span("models.moe.combine"):
+        # a dropped assignment reads a real row and contributes 0, as the
+        # reference's zero trash row does
+        rows = h[eid, slot.clamp(max=capacity - 1)]
+        contrib = torch.where(keep[:, None], rows * gate.to(ct)[:, None], 0)
+        y = contrib.reshape(T, k, d).sum(dim=1)
     return y, frac_prob, assigned, T
 
 

@@ -18,6 +18,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.kernels import ops as kops
 from . import dist
 from .config import ModelConfig, torch_dtype
@@ -77,6 +78,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y + b[None, None], xp[:, -(W - 1):]
 
 
+@tracing.spanned("models.mamba2", device_time="backward")
 def mamba2_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                state: Optional[MambaState] = None, return_state: bool = False
                ) -> Tuple[torch.Tensor, Optional[MambaState]]:

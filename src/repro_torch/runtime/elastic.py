@@ -46,6 +46,7 @@ import torch
 import torch.distributed as tdist
 from torch.distributed.tensor import DTensor
 
+from repro_torch import tracing
 from repro_torch.launch.mesh import make_mesh, mesh_device
 from repro_torch.models import init_params, set_mesh
 from repro_torch.models.config import ModelConfig
@@ -288,10 +289,14 @@ class ElasticJob:
         if self._ranks is not None:
             metrics = self._ranks.call("step", self.step_idx)
         else:
-            batch = synthetic_batch(self.cfg, self.batch, self.seq, seed=self.seed,
-                                    step=self.step_idx, device=self.device)
-            self._state, metrics = self._step_fn(self._state, batch)
-            metrics = {k: float(v) for k, v in metrics.items()}  # waits for the step
+            with tracing.span("runtime.step", jid=self.jid, step=self.step_idx):
+                with tracing.span("runtime.batch"):
+                    batch = synthetic_batch(self.cfg, self.batch, self.seq, seed=self.seed,
+                                            step=self.step_idx, device=self.device)
+                self._state, metrics = self._step_fn(self._state, batch)
+                with tracing.span("runtime.sync"):   # the first value waits for the step
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                    tracing.count("host_syncs", len(metrics))   # one a value read
         self.step_idx += 1
         self.losses.append(metrics["loss"])
         self.step_seconds.append(time.perf_counter() - t0)

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.models import decode_step, prefill
 from repro_torch.models.config import ModelConfig
 
@@ -81,6 +82,8 @@ class ServeEngine:
         self.device = torch.device(device)
         self.step_seconds: List[float] = []
 
+    @tracing.spanned("serving.batch", attrs=lambda self, requests: {
+        "rids": [r.rid for r in requests]})
     def serve_batch(self, requests: List[Request]) -> List[Request]:
         """Run a padded batch of requests to completion."""
         B = len(requests)
@@ -91,12 +94,14 @@ class ServeEngine:
         toks = np.zeros((B, S), np.int64)
         for i, r in enumerate(requests):
             toks[i, S - lens[i]:] = r.prompt    # left-pad to align last token
-        logits, cache = prefill(self.params, torch.from_numpy(toks).to(self.device),
-                                self.cfg)
-        cache = {name: tuple(_grow(c, self.max_seq) for c in kv)
-                 for name, kv in cache.items()}
-        next_tok = logits.argmax(dim=-1)
-        first = next_tok.tolist()
+        with tracing.span("serving.prefill"):
+            logits, cache = prefill(self.params, torch.from_numpy(toks).to(self.device),
+                                    self.cfg)
+            cache = {name: tuple(_grow(c, self.max_seq) for c in kv)
+                     for name, kv in cache.items()}
+            next_tok = logits.argmax(dim=-1)
+            first = next_tok.tolist()
+            tracing.count("host_syncs", 2)   # the prompt's copy, the first tokens read
         live = np.ones((B,), bool)
         n_steps = max(r.max_new_tokens for r in requests)
         now = time.monotonic()
@@ -109,10 +114,12 @@ class ServeEngine:
             if pos >= self.max_seq:
                 break
             t0 = time.monotonic()
-            logits, cache = decode_step(self.params, cache, next_tok[:, None],
-                                        pos, self.cfg)
-            next_tok = logits.argmax(dim=-1)
-            toks_host = next_tok.tolist()
+            with tracing.span("serving.decode_step", pos=pos):
+                logits, cache = decode_step(self.params, cache, next_tok[:, None],
+                                            pos, self.cfg)
+                next_tok = logits.argmax(dim=-1)
+                toks_host = next_tok.tolist()
+                tracing.count("host_syncs")
             self.step_seconds.append(time.monotonic() - t0)
             for i, r in enumerate(requests):
                 if not live[i]:

@@ -15,6 +15,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.models import TrainBatch
 from repro_torch.models.config import ModelConfig, ShapeSpec
 
@@ -35,11 +36,13 @@ def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,
     toks = np.abs(base + np.cumsum(drift, axis=1)) % cfg.vocab
     tokens = torch.from_numpy(np.ascontiguousarray(toks[:, :-1])).to(device)
     labels = torch.from_numpy(np.ascontiguousarray(toks[:, 1:])).to(device)
+    tracing.count("host_syncs", 2)   # each a blocking copy from pageable memory
     extra = None
     rows = {"vlm": cfg.n_patches, "audio": cfg.enc_len}.get(cfg.family)
     if rows is not None:
         e = rng.standard_normal((batch, rows, cfg.d_model)) * 0.02
         extra = torch.from_numpy(e.astype(np.float32)).to(device)
+        tracing.count("host_syncs")
     out = TrainBatch(tokens=tokens, labels=labels, extra=extra)
     if mesh is None:
         return out

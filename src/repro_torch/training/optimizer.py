@@ -16,6 +16,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 from torch.distributed.tensor import DTensor
 
+from .. import tracing
 from ..models.config import SLICE_ELEMS
 
 Tree = Dict[str, Any]
@@ -81,6 +82,7 @@ class AdamW(NamedTuple):
 
     # -- update ----------------------------------------------------------------
     @torch.no_grad()
+    @tracing.spanned("training.optimizer", device_time=True)
     def update(self, grads: Tree, state: AdamWState, params: Tree
                ) -> Tuple[Tree, AdamWState, torch.Tensor]:
         """One step: clip by the global norm, update m and v, apply the
@@ -93,6 +95,7 @@ class AdamW(NamedTuple):
         stepf = step.to(torch.float32)
         c1 = 1 - torch.pow(torch.tensor(self.b1, device=stepf.device), stepf)
         c2 = 1 - torch.pow(torch.tensor(self.b2, device=stepf.device), stepf)
+        tracing.count("host_syncs", 2)   # each scalar a blocking copy to the device
 
         def upd(g, m, v, p):
             # a big leaf in blocks of rows (a DTensor's shards are each

@@ -20,6 +20,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.models import TrainBatch, dist, loss_fn
 from repro_torch.models.config import ModelConfig
 from .optimizer import AdamW, AdamWState, tree_leaves, tree_map
@@ -70,12 +71,15 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, microbatches: int = 1,
         leaves = list(tree_leaves(params))
         live = [p.detach().requires_grad_(True) for p in leaves]
         it = iter(live)
-        loss, metrics = loss_fn(tree_map(lambda _: next(it), params), batch, cfg)
-        grads = torch.autograd.grad(loss, live)
+        with tracing.span("training.forward", device_time=True):
+            loss, metrics = loss_fn(tree_map(lambda _: next(it), params), batch, cfg)
+        with tracing.span("training.backward", device_time=True):
+            grads = torch.autograd.grad(loss, live)
         it = iter(grads)
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 tree_map(lambda _: next(it), params))
 
+    @tracing.spanned("training.step", device_time=True)
     def train_step(state: TrainState, batch: TrainBatch):
         params = state.params
         if microbatches == 1:
