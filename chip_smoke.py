@@ -70,6 +70,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                 fastest backend that accepts the case, named in the row.  A
                 backward case times the backward alone: the plain version's
                 and SDPA's backward are autograd over a retained graph.
+                Then the causal conv + SiLU, forward and backward, at the
+                benchmark's zamba2-1.2b step (8 x 2048 tokens: 4096 and 128
+                channels) and at xlstm-350m's 2048 channels, against the
+                blocks' plain chain (`plain_ms`: what the kernel replaced).
                 Then `torch.profiler`'s device time of each CUDA kernel that
                 one flash_decode call, one bf16 ssd_scan call and one bf16
                 SSD backward call launch, at the main path's shapes (L2
@@ -205,9 +209,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 head shape (4 heads of 512, chunk 256, 2 x 1024 tokens, f32)
                 within 1e-4 of the largest magnitude, with the scan's device
                 time (`Clock`) beside its bound, max(FLOPs / 67e12, bytes /
-                3.35e12).  No hand-written kernel may launch: xLSTM has none
-                (the mLSTM scan and the sLSTM time loop are plain torch, as
-                the reference's are jnp).
+                3.35e12).  No hand-written kernel may launch but the mLSTM's
+                causal conv (the mLSTM scan and the sLSTM time loop are plain
+                torch, as the reference's are jnp).
   18. xLSTM serve -- xlstm-350m at full width and depth (24 blocks: 4
                 groups of one sLSTM and 5 mLSTM blocks, d_model 1024), bf16,
                 random weights from seed 0, served through `prefill` and
@@ -217,12 +221,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                 the step's byte bound (every parameter, from the leaves,
                 plus every state read and written), and a `torch.profiler`
                 split of one prefill and one decode step; a second serve
-                must give the same tokens; no kernel launches.
+                must give the same tokens; no kernel launches but the conv,
+                once an mLSTM block in the prefill (decode's one-row conv is
+                plain torch).
   19. xLSTM train -- `repro_torch.launch.train.main` at xlstm-350m's full
                 width and depth, bf16, remat "full", 4 microbatches, 2 steps
                 of 8 x 1024 tokens (the sequence cut from 2048: a step there
                 passed 90 s); finite losses, the first near ln(vocab),
-                no kernel launches.  Prints the step times, tokens/s, peak
+                no kernel launches but the conv's, as `train_launches` says.  Prints the step times, tokens/s, peak
                 memory, and one sLSTM block's forward and forward + backward
                 timed alone at the microbatch's shape, with the share of a
                 step they make up (each step runs each sLSTM block per
@@ -1112,6 +1118,64 @@ def training_kernel_cases(torch, F, fa, ssd, clock):
     return rows
 
 
+# ----------------------------------------- 3c. the causal conv + SiLU
+# (B, S, C) of the conv at the benchmark's zamba2-1.2b step (8 x 2048 tokens,
+# one microbatch): a Mamba-2 layer's conv_x (expand x d_model, 4096
+# channels) and conv_bc (2 d_state, 128); and xlstm-350m's mLSTM conv (2048
+# channels); 4 taps each
+CONV_SHAPES = [dict(B=8, S=2048, C=4096), dict(B=8, S=2048, C=128),
+               dict(B=8, S=2048, C=2048)]
+
+
+def conv_kernel_cases(torch, clock):
+    """The causal conv + SiLU, forward and backward, against its plain
+    version (the blocks' shifted multiplies and `F.silu`, the chain they
+    ran before the kernel, so `plain_ms` is what the kernel replaced) at
+    CONV_SHAPES in both dtypes, errors relative to the largest magnitude of
+    the plain version computed in f32; returns the rows keyed like
+    kernel_cases'."""
+    from perfbench.kernels._conv import cost
+    from repro_torch.kernels import causal_conv as cc
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    rows = {}
+
+    def rnd(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(dt)
+
+    def err(a, r):
+        return float((a.float() - r).abs().max()), _rel_err(a, r)
+
+    for dtn in ("bfloat16", "float32"):
+        dt = getattr(torch, dtn)
+        for c in CONV_SHAPES:
+            B, S, C = c["B"], c["S"], c["C"]
+            x, w, b, dy = rnd((B, S, C), dt), rnd((4, C), dt, 0.5), rnd((C,), dt), \
+                rnd((B, S, C), dt)
+            live = [t.float().requires_grad_(True) for t in (x, w, b)]
+            ref = cc.causal_conv_silu_plain(*live)
+            refs = torch.autograd.grad(ref, live, dy.float())
+            y = cc.causal_conv_silu(x, w, b)
+            got = cc._launch_bwd(x, w, b, dy)
+            torch.cuda.synchronize()
+            key = tuple(sorted(c.items()))
+            flops, nbytes = cost(B, S, C, 4, x.element_size())
+            rows[("causal_conv", dtn, key)] = _row(
+                torch, clock, "causal_conv", dtn, c, {"y": err(y, ref.detach())}, flops,
+                nbytes, lambda: cc.causal_conv_silu(x, w, b),
+                lambda: cc.causal_conv_silu_plain(x, w, b), None, 10)
+            errs = {k: err(a, r) for k, a, r in zip(("dx", "dw", "db"), got, refs)}
+            plain = [t.detach().requires_grad_(True) for t in (x, w, b)]
+            y_plain = cc.causal_conv_silu_plain(*plain)
+            flops, nbytes = cost(B, S, C, 4, x.element_size(), backward=True)
+            rows[("causal_conv_bwd", dtn, key)] = _row(
+                torch, clock, "causal_conv_bwd", dtn, c, errs, flops, nbytes,
+                lambda: cc._launch_bwd(x, w, b, dy),
+                lambda: torch.autograd.grad(y_plain, plain, dy, retain_graph=True), None, 10)
+            del live, ref, refs, y, got, plain, y_plain
+    return rows
+
+
 def train_launches(cfg, microbatches: int) -> dict:
     """Each kernel's launches in one train step, from the layer structure
     and the remat nesting.
@@ -1124,22 +1188,40 @@ def train_launches(cfg, microbatches: int) -> dict:
     recompute, its own recompute), a tail layer twice and the shared block
     twice; each backward runs once.
 
+    Each Mamba-2 forward launches the causal conv twice (x, and B and C),
+    each Mamba-2 backward its backward twice.
+
+    xLSTM, per microbatch: groups of an sLSTM block and its mLSTM blocks,
+    each group checkpointed and each mLSTM block in it, so under
+    remat="full" an mLSTM block runs its conv forward three times, but the
+    group's last twice (the group's recompute stops before it: the
+    checkpoint saved nothing inside it), and its backward once; no other
+    hand-written kernel.
+
     Dense layout (dense and MoE blocks, `pre_layers` included), per
     microbatch: each of the n_layers blocks runs attention forward once,
     twice under remat="full" (each block is checkpointed), and its backward
-    once; no SSD kernel."""
+    once; no SSD kernel, no conv."""
     full = cfg.remat == "full"
-    if cfg.family != "hybrid":
+    if cfg.family == "ssm":
+        from repro_torch.models.model import _xlstm_groups
+        groups, n_m = _xlstm_groups(cfg)
+        per_mb = {"ssd_scan": 0, "ssd_scan_bwd": 0, "flash_attention": 0,
+                  "flash_attention_bwd": 0,
+                  "causal_conv": groups * (3 * n_m - 1 if full else n_m),
+                  "causal_conv_bwd": groups * n_m}
+    elif cfg.family != "hybrid":
         per_mb = {"ssd_scan": 0, "ssd_scan_bwd": 0,
                   "flash_attention": cfg.n_layers * (2 if full else 1),
-                  "flash_attention_bwd": cfg.n_layers}
-        return {name: microbatches * n for name, n in per_mb.items()}
-    k = cfg.attn_every
-    groups, tail = cfg.n_layers // k, cfg.n_layers % k
-    per_mb = {"ssd_scan": groups * k * (3 if full else 1) + tail * (2 if full else 1),
-              "ssd_scan_bwd": cfg.n_layers,
-              "flash_attention": groups * (2 if full else 1),
-              "flash_attention_bwd": groups}
+                  "flash_attention_bwd": cfg.n_layers, "causal_conv": 0, "causal_conv_bwd": 0}
+    else:
+        k = cfg.attn_every
+        groups, tail = cfg.n_layers // k, cfg.n_layers % k
+        per_mb = {"ssd_scan": groups * k * (3 if full else 1) + tail * (2 if full else 1),
+                  "ssd_scan_bwd": cfg.n_layers,
+                  "flash_attention": groups * (2 if full else 1),
+                  "flash_attention_bwd": groups}
+        per_mb.update(causal_conv=2 * per_mb["ssd_scan"], causal_conv_bwd=2 * cfg.n_layers)
     return {name: microbatches * n for name, n in per_mb.items()}
 
 
@@ -1278,9 +1360,12 @@ def full_width_train(torch, fa, ssd):
     from repro_torch.configs import get_config
     from repro_torch.launch.train import main as train_main
 
+    from repro_torch.kernels import causal_conv as cc
+
     argv = TRAIN_ARGV
     counters = {"flash_attention": fa.flash_attention, "flash_attention_bwd": fa._launch_bwd,
-                "ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd._launch_bwd}
+                "ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd._launch_bwd,
+                "causal_conv": cc.causal_conv_silu, "causal_conv_bwd": cc._launch_bwd}
     for fn in counters.values():
         fn.launches = 0
     fa.flash_attention.mla_launches = fa._launch_bwd.mla_launches = 0
@@ -1316,6 +1401,7 @@ def live_seam(torch, fa, fd, ssd):
     from types import SimpleNamespace
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import causal_conv as cc
     from repro_torch.launch.elastic_cluster import MAX_SEQ, plan_batch
     from repro_torch.launch.elastic_cluster import main as cluster_main
     from repro_torch.models import init_params
@@ -1335,7 +1421,8 @@ def live_seam(torch, fa, fd, ssd):
             "--speed", "inf", "--ckpt-dir", str(ckpt)]
     counters = {"flash_attention": fa.flash_attention, "flash_decode": fd.flash_decode,
                 "ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd._launch_bwd,
-                "flash_attention_bwd": fa._launch_bwd}
+                "flash_attention_bwd": fa._launch_bwd, "causal_conv": cc.causal_conv_silu,
+                "causal_conv_bwd": cc._launch_bwd}
     jobs = {}
     for fn in counters.values():
         fn.launches = 0
@@ -1498,7 +1585,8 @@ def full_width_hybrid_serve(torch, fa, fd, ssd):
     expected = {"flash_attention": n_groups, "flash_decode": n_groups * (HYBRID_NEW - 1),
                 "ssd_scan": cfg.n_layers, "ssd_scan_bwd": 0, "flash_attention_bwd": 0,
                 "ssd_scan_final_state": cfg.n_layers, "flash_attention_mla": 0,
-                "flash_attention_bwd_mla": 0}
+                "flash_attention_bwd_mla": 0, "causal_conv": 2 * cfg.n_layers,
+                "causal_conv_bwd": 0}
     print(f"launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -1622,7 +1710,7 @@ def launchers_on_card(torch, fa, fd, ssd):
                 "flash_decode": demo.n_layers * decode_steps, "ssd_scan": 0,
                 "ssd_scan_bwd": 0, "flash_attention_bwd": cfg.n_layers * QUICK_STEPS,
                 "ssd_scan_final_state": 0, "flash_attention_mla": 0,
-                "flash_attention_bwd_mla": 0}
+                "flash_attention_bwd_mla": 0, "causal_conv": 0, "causal_conv_bwd": 0}
     print(f"launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -1902,7 +1990,7 @@ def full_width_moe_serve(torch, fa, fd, ssd):
     expected = {"flash_attention": cfg.n_layers, "flash_decode": cfg.n_layers * (MOE_NEW - 1),
                 "ssd_scan": 0, "ssd_scan_bwd": 0, "flash_attention_bwd": 0,
                 "ssd_scan_final_state": 0, "flash_attention_mla": 0,
-                "flash_attention_bwd_mla": 0}
+                "flash_attention_bwd_mla": 0, "causal_conv": 0, "causal_conv_bwd": 0}
     print(f"launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -2100,12 +2188,16 @@ def campaigns_on_card(torch, fa, fd, ssd) -> tuple:
 
 
 # -------------------------------------------------------- 17. xLSTM parity
-def _no_launches(launches: dict, what: str) -> None:
-    """xLSTM has no hand-written kernel (the mLSTM scan and the sLSTM loop
-    are plain torch, as the reference's are jnp): fail if one launched."""
-    print(f"launches {launches}, expected none")
-    if any(launches.values()):
-        raise AssertionError(f"{what}: a hand-written kernel launched: {launches}")
+def _conv_launches_only(launches: dict, what: str, **counts) -> None:
+    """xLSTM's one hand-written kernel is the mLSTM's causal conv (the mLSTM
+    scan and the sLSTM loop are plain torch, as the reference's are jnp):
+    fail if another launched, if the conv's forward did not, or if the
+    conv's counts differ from `counts` where given."""
+    print(f"launches {launches}, expected the conv's alone {counts or ''}")
+    other = {k: n for k, n in launches.items() if n and not k.startswith("causal_conv")}
+    if other or not launches["causal_conv"] or any(launches[k] != n for k, n in counts.items()):
+        raise AssertionError(f"{what}: kernel launches {launches}: not the conv's alone "
+                             f"{counts or ''}")
 
 
 def mlstm_scan_cost(b, s, h, d, chunk):
@@ -2127,7 +2219,8 @@ def xlstm_parity(torch, fa, fd, ssd):
     cache leaves within 1e-4, tokens equal), then one train step (phase 6's
     `train_parity`).  Then `ops.mlstm_scan` against `ref.naive_mlstm` at
     XLSTM_SCAN in f32, within 1e-4 of the largest magnitude, and the scan's
-    device time beside its bound.  No hand-written kernel launches."""
+    device time beside its bound.  No hand-written kernel launches but the
+    mLSTM's causal conv."""
     import dataclasses
 
     import numpy as np
@@ -2188,7 +2281,7 @@ def xlstm_parity(torch, fa, fd, ssd):
     print(json.dumps({"mlstm_scan_full_width": row}))
     if not rel <= 1e-4:
         raise AssertionError(f"mlstm_scan differs from naive_mlstm by {rel} > 1e-4 relative")
-    _no_launches(counters(), "xlstm parity")
+    _conv_launches_only(counters(), "xlstm parity")
 
 
 # --------------------------------------------------------- 18. xLSTM serve
@@ -2205,6 +2298,7 @@ def full_width_xlstm_serve(torch, fa, fd, ssd):
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.model import _xlstm_groups
     from repro_torch.training.optimizer import tree_leaves
 
     gc.collect()
@@ -2248,7 +2342,8 @@ def full_width_xlstm_serve(torch, fa, fd, ssd):
              "decode_step_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S}
     print(json.dumps({"xlstm_serve": stats, "launches": launches,
                       "first_tokens": [t[0] for t in tokens]}), flush=True)
-    _no_launches(launches, "xlstm serve")
+    n_mlstm = math.prod(_xlstm_groups(cfg))
+    _conv_launches_only(launches, "xlstm serve", causal_conv=n_mlstm, causal_conv_bwd=0)
     if not (finite and all(len(t) == XLSTM_NEW and all(0 <= v < cfg.vocab for v in t)
                            for t in tokens)):
         raise AssertionError("non-finite logits, or a request without "
@@ -2324,8 +2419,10 @@ def full_width_xlstm_train(torch, fa, fd, ssd):
     stats = train_main(argv)
     launches = counters()
     print(json.dumps({"xlstm_train": stats, "launches": launches}), flush=True)
-    _no_launches(launches, "xlstm train")
     cfg = get_config("xlstm_350m")
+    _conv_launches_only(launches, "xlstm train", **{
+        k: XLSTM_TRAIN_STEPS * n for k, n in train_launches(cfg, cfg.train_microbatches).items()
+        if k.startswith("causal_conv")})
     losses = stats["losses"]
     if not (len(losses) == XLSTM_TRAIN_STEPS and all(math.isfinite(x) for x in losses)
             and abs(losses[0] - math.log(cfg.vocab)) < 1.5):
@@ -3308,6 +3405,7 @@ def main(argv=None) -> int:
     clock = Clock(torch)
     rows = kernel_cases(torch, F, fa, fd, clock)
     rows.update(training_kernel_cases(torch, F, fa, ssd, clock))
+    rows.update(conv_kernel_cases(torch, clock))
     del clock
     kernel_breakdown(torch, fd, ssd)
     if args.kernels_only:
@@ -3426,6 +3524,8 @@ def main(argv=None) -> int:
         "flash_attention_mla": ("bfloat16", dict(MLA_ATTN, B=MLA_REQUESTS, S=MLA_PROMPT[1])),
         "flash_attention_bwd_mla": ("bfloat16", dict(MLA_ATTN, B=MLA_TRAIN_BATCH,
                                                      S=MLA_TRAIN_SEQ)),
+        "causal_conv": ("bfloat16", CONV_SHAPES[0]),
+        "causal_conv_bwd": ("bfloat16", CONV_SHAPES[0]),
     }
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -3441,6 +3541,10 @@ def main(argv=None) -> int:
                                 "src/repro/kernels/flash_attention.py:85"),
         "flash_attention_bwd_mla": (csrc + "flash_attention_bwd.cu",
                                     "src/repro/kernels/flash_attention.py:85"),
+        "causal_conv": (csrc + "causal_conv.cu",
+                        "none: the jnp `_causal_conv` + silu, src/repro/models/ssm.py:57"),
+        "causal_conv_bwd": (csrc + "causal_conv.cu",
+                            "none: autodiff of src/repro/models/ssm.py:57"),
     }
     kernels = []
     for name, (dtn, c) in main_shape.items():
@@ -3463,12 +3567,14 @@ def main(argv=None) -> int:
                    "audio_train": vl_train_launches["audio"][name],
                    "mla_train": mla_train_launches[name],
                    "mesh_train": mesh_train_launches[name]}
+        f32 = rows.get((case, "float32", tuple(sorted(c.items()))))
         kernels.append({"name": name, "route": "cuda", "source": meta[name][0],
                         "replaces": meta[name][1], "launches": sum(by_path.values()),
                         "launches_by_path": by_path,
                         **{k: row[k] for k in ("max_abs_err", "ms", "host_ms", "plain_ms",
                                                "bound_ms", "bound_by", "library_ms",
-                                               "library")}})
+                                               "library")},
+                        **({"max_abs_err_f32": f32["max_abs_err"]} if f32 else {})})
     print(smi)
     print(json.dumps({"decision_sweep": sweep_rows}))
     print(json.dumps({"campaign_sweep": campaign_rows}))

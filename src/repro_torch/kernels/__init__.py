@@ -7,6 +7,7 @@ and `reset_launch_counts` sets them to 0, in the calling process.
 
 
 def _counters():
+    from . import causal_conv as cc
     from . import flash_attention as fa
     from . import flash_decode as fd
     from . import ssd_scan as ssd
@@ -19,7 +20,9 @@ def _counters():
             "flash_attention_bwd": (fa._launch_bwd, "launches"),
             "ssd_scan_final_state": (ssd.ssd_scan, "final_state_launches"),
             "flash_attention_mla": (fa.flash_attention, "mla_launches"),
-            "flash_attention_bwd_mla": (fa._launch_bwd, "mla_launches")}
+            "flash_attention_bwd_mla": (fa._launch_bwd, "mla_launches"),
+            "causal_conv": (cc.causal_conv_silu, "launches"),
+            "causal_conv_bwd": (cc._launch_bwd, "launches")}
 
 
 def launch_counts() -> dict:

@@ -1,14 +1,18 @@
 """Kernel dispatch: the port's counterpart of `repro.kernels.ops.attention`
 and `ops.ssd_scan`.
 
-The three dispatch points are the reference's (`ops.py:216`, `:221` and
-`:263`):
+Three dispatch points are the reference's (`ops.py:216`, `:221` and
+`:263`); the fourth is the port's own:
 
   * causal self-attention with Sq == Skv (prefill, training)
                                                      -> `flash_attention`;
   * one query token against a cache (`kv_valid_len`) -> `flash_decode`;
   * the SSD scan, with or without its final state (training; hybrid
-    prefill)                                         -> `ssd_scan`.
+    prefill)                                         -> `ssd_scan`;
+  * the causal depthwise conv and its SiLU from zero history (Mamba-2's
+    `conv_x` and `conv_bc`, the mLSTM's conv; training and prefill; the
+    reference's is jnp, `repro.models.ssm._causal_conv`)
+                                                     -> `causal_conv`.
 
 The reference sends the SSD scan with a final state to its jnp path (its
 Pallas kernel has no state output); the port's kernels write the state as
@@ -21,11 +25,14 @@ The routing rule, decided by shape before any launch:
     kernel's `supports` refuses (head dims other than 32, 64 and 128 for
     the attention kernels, but for flash_attention's forward the MLA pairs
     (D, Dv) = (192, 128) and (48, 32); n or p over 64, a chunk over 1024
-    or s not a multiple of it for the SSD scan) raises `ValueError` before
-    any launch: no call on the card gives way to a plain version.
+    or s not a multiple of it for the SSD scan; more than 4 taps, channels
+    not a multiple of 8 or a dtype other than float32 and bfloat16 for the
+    conv) raises `ValueError` before any launch: no call on the card gives
+    way to a plain version.
 
 Everything else (non-causal and cross attention, Sq != Skv, the one-token
-SSD recurrence `ssd_step` of hybrid decode, and the xLSTM's chunked mLSTM
+SSD recurrence `ssd_step` of hybrid decode, the conv of one decode token
+from its carried tail, and the xLSTM's chunked mLSTM
 scan `mlstm_scan`, which the reference writes in jnp alone) is plain torch,
 as it is jnp in the reference.  The reference's `_causal_binary` /
 `_rect_chunked` (and `_merge`) exist to keep XLA's FLOP counts exact and
@@ -39,6 +46,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import causal_conv as cc
 from . import flash_attention as fa
 from . import flash_decode as fd
 from . import ssd_scan as ssd
@@ -81,6 +89,14 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256,
     state after the last token (prefill -> decode handoff)."""
     return ssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk,
                         return_final_state=return_final_state)
+
+
+def causal_conv_silu(x, w, b):
+    """silu(bias + the causal depthwise conv of x (B, S, C) with taps w (W,
+    C)), zero history before the first token: the hand-written kernel on a
+    CUDA tensor (inputs it does not `supports` raise), the plain shifted
+    multiplies and `F.silu` on a CPU tensor."""
+    return cc.causal_conv_silu(x, w, b)
 
 
 def ssd_step(state, x_t, dt_t, A, B_t, C_t, D):

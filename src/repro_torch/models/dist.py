@@ -183,3 +183,39 @@ def local_ssd(fn, x, dt, A, B, C, D, *, final_state: bool = False):
                     in_grad_placements=(x_pl, dt_pl, h_grad, bc_grad, bc_grad, h_grad),
                     device_mesh=_MESH, redistribute_inputs=True)(x, dt, A, B, C, D)
     return out if final_state else out[0]
+
+
+def local_conv(fn, x, w, b):
+    """fn(x, w, b) (a depthwise causal conv along time: x (B, S, C), w (W,
+    C), b (C,)) on each rank's own shards when a mesh is set.  Batch rows
+    and channels are independent, so x keeps its shards over the batch and
+    channels (w and b follow its channel shards), and a mesh axis that
+    shards the time or holds partial sums is gathered; the output keeps
+    x's layout.  Where x is sharded over the batch, the gradients of w and
+    b are partial sums over that axis.  Without a mesh, fn(x, w, b)."""
+    if _MESH is None or not isinstance(x, DTensor):
+        return fn(x, w, b)
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    x_pl, w_pl, b_pl, w_grad, b_grad = [], [], [], [], []
+    for p in x.placements:
+        dim = p.dim % x.ndim if isinstance(p, Shard) else None
+        if dim == x.ndim - 1:          # channels: each rank its own taps
+            x_pl.append(p)
+            w_pl.append(Shard(1))
+            b_pl.append(Shard(0))
+        elif dim == 0:                 # batch rows: every rank all taps
+            x_pl.append(p)
+            w_pl.append(Replicate())
+            b_pl.append(Replicate())
+        else:                          # time or partial sums: gathered
+            x_pl.append(Replicate())
+            w_pl.append(Replicate())
+            b_pl.append(Replicate())
+        w_grad.append(Partial() if dim == 0 else w_pl[-1])
+        b_grad.append(Partial() if dim == 0 else b_pl[-1])
+    return local_map(lambda *a: (fn(*a),), out_placements=(tuple(x_pl),),
+                     in_placements=(tuple(x_pl), tuple(w_pl), tuple(b_pl)),
+                     in_grad_placements=(tuple(x_pl), tuple(w_grad), tuple(b_grad)),
+                     device_mesh=_MESH, redistribute_inputs=True)(x, w, b)[0]

@@ -5,7 +5,10 @@ layouts and recurrent states (`MambaState`, `MLSTMState`, `SLSTMState`).
 Mamba-2 (the SSM half of the hybrid family): training, the hybrid forward
 and hybrid prefill run the chunked SSD scan (`kernels.ops.ssd_scan`, the
 hand-written kernel on the card; prefill asks it for the final state),
-decode the one-token recurrence `ops.ssd_step`.  xLSTM (the ssm family):
+decode the one-token recurrence `ops.ssd_step`.  The causal conv and its
+SiLU, in Mamba-2 and the mLSTM alike, run `ops.causal_conv_silu` (the
+kernel on the card) wherever no decode state is given, and decode's
+one-row conv from its carried tail in plain torch.  xLSTM (the ssm family):
 the mLSTM runs the chunked scan `ops.mlstm_scan` (plain torch, as the
 reference's is jnp alone) and the one-token `_mlstm_step`; the sLSTM a
 Python loop over time, one card only (the reference's batch-sharded
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch import tracing
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.causal_conv import causal_conv_plain as _causal_conv
 from . import dist
 from .config import ModelConfig, torch_dtype
 from .layers import _init, init_rmsnorm, rmsnorm
@@ -64,18 +68,26 @@ def init_mamba2(gen: Optional[torch.Generator], cfg: ModelConfig,
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 state: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Depthwise causal conv along time.  x: (B, S, C); w: (W, C).
-    state (B, W-1, C) carries the tail for decode; returns (y, new_state)."""
-    W = w.shape[0]
-    if state is None:
-        pad = x.new_zeros((x.shape[0], W - 1, x.shape[2]))
-    else:
-        pad = state.to(x.dtype)
-    xp = torch.cat([pad, x], dim=1)
-    y = sum(xp[:, i:i + x.shape[1]] * w[i][None, None] for i in range(W))
-    return y + b[None, None], xp[:, -(W - 1):]
+def _conv_silu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               state: Optional[torch.Tensor], tail: bool
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """silu of the depthwise causal conv along time: x (B, S, C), w (W, C).
+    Without `state`, from zero history through `ops.causal_conv_silu` (the
+    kernel on the card) and, with `tail`, the (B, W-1, C) tail for decode:
+    x's last W-1 rows, zero-padded in front when S < W-1.  With `state` (a
+    decode token after its carried tail), the plain conv.  Returns (y, the
+    tail or None)."""
+    if state is not None:
+        y, new_state = _causal_conv(x, w, b, state)
+        return F.silu(y), new_state
+    y = dist.local_conv(kops.causal_conv_silu, x, w, b)
+    if not tail:
+        return y, None
+    B, S, C = x.shape
+    keep = w.shape[0] - 1
+    if S >= keep:  # a copy: a view would keep all of x alive in the cache
+        return y, x[:, S - keep:].clone()
+    return y, torch.cat([x.new_zeros((B, keep - S, C)), x], dim=1)
 
 
 @tracing.spanned("models.mamba2", device_time="backward")
@@ -96,12 +108,11 @@ def mamba2_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     z = x @ p["w_z"].to(ct)
     bc = x @ p["w_bc"].to(ct)
     dt = x @ p["w_dt"].to(ct)
-    conv_x, cx_state = _causal_conv(xi, p["conv_x_w"].to(ct), p["conv_x_b"].to(ct),
-                                    state.conv_x if state is not None else None)
-    conv_bc, cbc_state = _causal_conv(bc, p["conv_bc_w"].to(ct), p["conv_bc_b"].to(ct),
-                                      state.conv_bc if state is not None else None)
-    xs = F.silu(conv_x)
-    B, C = torch.chunk(F.silu(conv_bc), 2, dim=-1)
+    xs, cx_state = _conv_silu(xi, p["conv_x_w"].to(ct), p["conv_x_b"].to(ct),
+                              state.conv_x if state is not None else None, return_state)
+    bc, cbc_state = _conv_silu(bc, p["conv_bc_w"].to(ct), p["conv_bc_b"].to(ct),
+                               state.conv_bc if state is not None else None, return_state)
+    B, C = torch.chunk(bc, 2, dim=-1)
     xh = dist.constrain_heads(xs.reshape(*xs.shape[:2], nh, s.d_head))
     dt = dist.constrain_heads(F.softplus(dt.float() + p["dt_bias"][None, None]))
     A = -torch.exp(p["a_log"])
@@ -189,9 +200,8 @@ def mlstm_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     f, dh = _xlstm_widths(cfg)
     up = x @ p["w_up"].to(ct)
     xi, z = torch.chunk(up, 2, dim=-1)
-    conv_out, conv_state = _causal_conv(xi, p["conv_w"].to(ct), p["conv_b"].to(ct),
-                                        state.conv if state is not None else None)
-    xq = F.silu(conv_out)
+    xq, conv_state = _conv_silu(xi, p["conv_w"].to(ct), p["conv_b"].to(ct),
+                                state.conv if state is not None else None, return_state)
     # the scale rounded to the compute dtype, as the reference's weak-typed
     # python float is (a host value: no copy to the device)
     scale = float(torch.tensor(dh ** -0.5, dtype=ct))

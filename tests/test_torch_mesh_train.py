@@ -7,9 +7,10 @@
   scan's batch, then its heads, over the ranks) and olmoe-1b-7b on 2 x 2
   (the expert-parallel branch).  Every rank ends with the same losses; the
   grad norms agree within 1e-4.
-* Under the mesh `kernels.flash_attention.flash_attention` and
-  `kernels.ssd_scan.ssd_scan` receive plain tensors, never DTensors (a spy
-  in each rank): the card's kernels take raw pointers.
+* Under the mesh `kernels.flash_attention.flash_attention`,
+  `kernels.ssd_scan.ssd_scan` and `kernels.causal_conv.causal_conv_silu`
+  receive plain tensors, never DTensors (a spy in each rank): the card's
+  kernels take raw pointers.
 * Checkpoints cross between the paths: the 4-rank run's checkpoint resumes
   in the one-process launcher, the one-process run's on 4 ranks, each
   continuing the uninterrupted run's losses within 1e-5; restored on the
@@ -54,10 +55,12 @@ def spied_train(argv):
     """`train.main(argv)` in a rank, with the kernels' entry points wrapped
     to record the type of each tensor they receive; returns its stats with
     {"kernel_inputs": {kernel: sorted type names}}."""
+    from repro_torch.kernels import causal_conv as cc
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
-    seen = {"flash_attention": set(), "ssd_scan": set()}
-    real = {"flash_attention": fa.flash_attention, "ssd_scan": ssd.ssd_scan}
+    seen = {"flash_attention": set(), "ssd_scan": set(), "causal_conv": set()}
+    real = {"flash_attention": fa.flash_attention, "ssd_scan": ssd.ssd_scan,
+            "causal_conv": cc.causal_conv_silu}
 
     def spy(name):
         def wrapped(*args, **kw):
@@ -65,10 +68,12 @@ def spied_train(argv):
             return real[name](*args, **kw)
         return wrapped
     fa.flash_attention, ssd.ssd_scan = spy("flash_attention"), spy("ssd_scan")
+    cc.causal_conv_silu = spy("causal_conv")
     try:
         out = train.main(argv)
     finally:
         fa.flash_attention, ssd.ssd_scan = real["flash_attention"], real["ssd_scan"]
+        cc.causal_conv_silu = real["causal_conv"]
     out["kernel_inputs"] = {k: sorted(v) for k, v in seen.items()}
     return out
 
@@ -109,7 +114,7 @@ def test_mesh_train_matches_one_process(arch, mesh, ranks):
     reached = {k: v for k, v in outs[0]["kernel_inputs"].items() if v}
     assert reached["flash_attention"] == ["Tensor"]
     if arch.startswith("zamba2"):
-        assert reached["ssd_scan"] == ["Tensor"]
+        assert reached["ssd_scan"] == reached["causal_conv"] == ["Tensor"]
     assert all(v == ["Tensor"] for out in outs for v in out["kernel_inputs"].values() if v)
 
 

@@ -364,14 +364,17 @@ def test_train_step_kernel_calls_match_chip_smokes_count(rigs, monkeypatch, rema
     from the layer structure and the remat nesting.  On the CPU the same
     path calls the kernels' plain forwards where the card launches them;
     count those calls and hold the formula to them."""
+    from repro_torch.kernels import causal_conv as cc
     _, cfg, _, tp = _rig(rigs, "zamba2_1p2b")
     cfg = cfg.with_(n_layers=5, remat=remat)    # two groups and a tail layer
     params = init_params(cfg, seed=0, device="cpu")
-    calls = {"ssd_scan": 0, "flash_attention": 0}
-    for mod, name in ((ssd, "ssd_scan_plain"), (fa, "flash_attention_plain")):
+    calls = {"ssd_scan": 0, "flash_attention": 0, "causal_conv": 0}
+    for mod, name, key in ((ssd, "ssd_scan_plain", "ssd_scan"),
+                           (fa, "flash_attention_plain", "flash_attention"),
+                           (cc, "causal_conv_silu_plain", "causal_conv")):
         orig = getattr(mod, name)
 
-        def counted(*a, _orig=orig, _key=name[:-len("_plain")], **k):
+        def counted(*a, _orig=orig, _key=key, **k):
             calls[_key] += 1
             return _orig(*a, **k)
         monkeypatch.setattr(mod, name, counted)
@@ -381,6 +384,7 @@ def test_train_step_kernel_calls_match_chip_smokes_count(rigs, monkeypatch, rema
     want = _chip_smoke().train_launches(cfg, microbatches=2)
     assert calls == {k: want[k] for k in calls}
     assert want["ssd_scan_bwd"] == 2 * 5 and want["flash_attention_bwd"] == 2 * 2
+    assert want["causal_conv"] == 2 * want["ssd_scan"] and want["causal_conv_bwd"] == 2 * 2 * 5
 
 
 @pytest.mark.parametrize("shape,blocks", [((7, 6), 3), ((2, 30), 2), ((40, 1), 2)])
