@@ -74,6 +74,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                 benchmark's zamba2-1.2b step (8 x 2048 tokens: 4096 and 128
                 channels) and at xlstm-350m's 2048 channels, against the
                 blocks' plain chain (`plain_ms`: what the kernel replaced).
+                Then `expert_mm` (the dropless MoE's grouped GEMMs) forward
+                and backward at phase 30's 131,072 rows, d_model 2048 <->
+                d_expert 1024 over 64 experts (two empty), against the
+                per-expert products in f32 and timed beside the per-expert
+                loop.
                 Then `torch.profiler`'s device time of each CUDA kernel that
                 one flash_decode call, one bf16 ssd_scan call and one bf16
                 SSD backward call launch, at the main path's shapes (L2
@@ -333,10 +338,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                 phase 7's launches, its losses within 2e-2 relative and no
                 launch in this process; prints both paths' step seconds and
                 peak memory, paired.
+  30. OLMoE as published -- olmoe-1b-7b with QK-norm, dropless routing
+                and ungated top-8 weights, 8 of 16 layers (the benchmark's
+                olmoe-train step): one dropless MoE layer at 8 x 2048 tokens
+                against the same layer through the per-expert loop (bf16,
+                2e-2), then 3 train steps of 8 x 2048 tokens in one
+                microbatch, asserting 48 forward and 24 backward grouped
+                GEMM calls a step and finite losses; one more step traced
+                as the benchmark traces, failing unless every name of
+                perfbench/kernels/expert_mm.json ran.  Prints step seconds,
+                tokens/s, peak memory and the grouped GEMMs' device time
+                beside their bound.
   8. a JSON line {"decision_sweep": [...]} (phase 12's rows), a JSON line
      {"campaign_sweep": [...]} (phase 16's), then a JSON line {"kernels":
      [...]} with each kernel's launches in phases 5, 7, 9, 10, 11, 14, 15,
-     16, 18, 19, 21, 23, 24, 25, 27 and 29 and its numbers at its main
+     16, 18, 19, 21, 23, 24, 25, 27, 29 and 30 and its numbers at its main
      path's shapes.
   last, the line {"ok": true, "device": {...}}.
 
@@ -446,6 +462,9 @@ MOE_HEADS = dict(H=16, K=16, D=128)
 # Phase 15's: olmoe-1b-7b cut to MOE_TRAIN_LAYERS layers, MOE_TRAIN_STEPS
 # steps of MOE_TRAIN_BATCH x MOE_TRAIN_SEQ tokens (2 x 2048 a microbatch)
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 8, 3, 8, 2048
+# phase 30: the benchmark's olmoe-train step (perfbench/configs/olmoe-1b-7b-0924.json):
+# 8 of the published 16 layers, one microbatch of 8 x 2048 tokens
+OLMOE_LAYERS, OLMOE_STEPS, OLMOE_BATCH, OLMOE_SEQ = 8, 3, 8, 2048
 # Phase 17's: the reduced xLSTM at an mLSTM chunk of 32 (its 64-token
 # prompt runs the inter-chunk carry), and the mLSTM scan at xlstm-350m's
 # head shape (4 heads of 512, chunk 256) over 2 x 1024 tokens
@@ -1176,6 +1195,76 @@ def conv_kernel_cases(torch, clock):
     return rows
 
 
+# ------------------------------------------- 3d. the grouped expert GEMMs
+# (R, K, N, E) of the dropless MoE's grouped products at phase 30's step (8 x
+# 2048 tokens, top-8: 131,072 rows over olmoe's 64 experts): w1 and w3
+# (d_model 2048 -> d_expert 1024) and w2 (1024 -> 2048); EXPERT_MM_EMPTY
+# are left without rows
+EXPERT_MM_SHAPES = [dict(R=131072, K=2048, N=1024, E=64), dict(R=131072, K=1024, N=2048, E=64)]
+EXPERT_MM_EMPTY = (3, 62)
+
+
+def expert_mm_kernel_cases(torch, clock):
+    """`expert_mm`, forward and backward (dX and dW), at EXPERT_MM_SHAPES in
+    bf16 (the one dtype the grouped GEMM takes), the rows drawn uniformly
+    over the experts but EXPERT_MM_EMPTY: errors relative to the largest
+    magnitude of the per-expert products in f32 from the same bf16 inputs
+    (an empty expert's dW must be exactly 0), timed against the per-expert
+    loop `expert_mm_plain` (`plain_ms`: a matmul an expert after a host read
+    of the offsets, what the dropless dispatch would run without the
+    grouped GEMM; its backward is autograd through the loop).  Returns the
+    rows keyed like kernel_cases'."""
+    from perfbench.kernels.expert_mm import cost
+    from repro_torch.kernels import expert_mm as emm
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    bf = torch.bfloat16
+    rows = {}
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(bf)
+
+    def err(a, r):
+        return float((a.float() - r).abs().max()), _rel_err(a, r)
+
+    for c in EXPERT_MM_SHAPES:
+        R, K, N, E = c["R"], c["K"], c["N"], c["E"]
+        share = torch.ones(E, device="cuda")
+        share[list(EXPERT_MM_EMPTY)] = 0.0
+        eid = torch.multinomial(share, R, replacement=True, generator=g).sort().values
+        offsets = torch.bincount(eid, minlength=E).cumsum(0).to(torch.int32)
+        x, w, dy = rnd((R, K)), rnd((E, K, N), K ** -0.5), rnd((R, N))
+        ref_y = torch.empty((R, N), device="cuda")
+        ref_dx = torch.empty((R, K), device="cuda")
+        ref_dw = torch.zeros((E, K, N), device="cuda")
+        ends = offsets.tolist()
+        for e, (s0, s1) in enumerate(zip([0, *ends[:-1]], ends)):
+            xe, we, ge = x[s0:s1].float(), w[e].float(), dy[s0:s1].float()
+            ref_y[s0:s1], ref_dx[s0:s1], ref_dw[e] = xe @ we, ge @ we.T, xe.T @ ge
+        y = emm.expert_mm(x, w, offsets)
+        dx, dw = emm._launch_bwd(x, w, offsets, dy)
+        torch.cuda.synchronize()
+        if any(float(dw[e].abs().max()) != 0.0 for e in EXPERT_MM_EMPTY):
+            raise AssertionError(f"expert_mm {c}: an empty expert's dW is not 0")
+        key = tuple(sorted(c.items()))
+        flops, nbytes = cost(R, K, N, E, 2)
+        rows[("expert_mm", "bfloat16", key)] = _row(
+            torch, clock, "expert_mm", "bfloat16", c, {"y": err(y, ref_y)}, flops, nbytes,
+            lambda: emm.expert_mm(x, w, offsets), lambda: emm.expert_mm_plain(x, w, offsets),
+            None, 10)
+        plain = [t.detach().requires_grad_(True) for t in (x, w)]
+        y_plain = emm.expert_mm_plain(*plain, offsets)
+        flops, nbytes = cost(R, K, N, E, 2, backward=True)
+        rows[("expert_mm_bwd", "bfloat16", key)] = _row(
+            torch, clock, "expert_mm_bwd", "bfloat16", c,
+            {"dx": err(dx, ref_dx), "dw": err(dw, ref_dw)}, flops, nbytes,
+            lambda: emm._launch_bwd(x, w, offsets, dy),
+            lambda: torch.autograd.grad(y_plain, plain, dy, retain_graph=True), None, 10)
+        del x, w, dy, ref_y, ref_dx, ref_dw, y, dx, dw, plain, y_plain
+    torch.cuda.empty_cache()
+    return rows
+
+
 def train_launches(cfg, microbatches: int) -> dict:
     """Each kernel's launches in one train step, from the layer structure
     and the remat nesting.
@@ -1201,7 +1290,9 @@ def train_launches(cfg, microbatches: int) -> dict:
     Dense layout (dense and MoE blocks, `pre_layers` included), per
     microbatch: each of the n_layers blocks runs attention forward once,
     twice under remat="full" (each block is checkpointed), and its backward
-    once; no SSD kernel, no conv."""
+    once; no SSD kernel, no conv.  With `moe.dropless`, each MoE block (all
+    but the `first_dense`) runs three grouped expert GEMMs a forward and
+    three backward calls.  No other layout runs them."""
     full = cfg.remat == "full"
     if cfg.family == "ssm":
         from repro_torch.models.model import _xlstm_groups
@@ -1209,11 +1300,13 @@ def train_launches(cfg, microbatches: int) -> dict:
         per_mb = {"ssd_scan": 0, "ssd_scan_bwd": 0, "flash_attention": 0,
                   "flash_attention_bwd": 0,
                   "causal_conv": groups * (3 * n_m - 1 if full else n_m),
-                  "causal_conv_bwd": groups * n_m}
+                  "causal_conv_bwd": groups * n_m, "expert_mm": 0, "expert_mm_bwd": 0}
     elif cfg.family != "hybrid":
+        n_moe = cfg.n_layers - cfg.moe.first_dense if cfg.moe and cfg.moe.dropless else 0
         per_mb = {"ssd_scan": 0, "ssd_scan_bwd": 0,
                   "flash_attention": cfg.n_layers * (2 if full else 1),
-                  "flash_attention_bwd": cfg.n_layers, "causal_conv": 0, "causal_conv_bwd": 0}
+                  "flash_attention_bwd": cfg.n_layers, "causal_conv": 0, "causal_conv_bwd": 0,
+                  "expert_mm": 3 * n_moe * (2 if full else 1), "expert_mm_bwd": 3 * n_moe}
     else:
         k = cfg.attn_every
         groups, tail = cfg.n_layers // k, cfg.n_layers % k
@@ -1221,7 +1314,8 @@ def train_launches(cfg, microbatches: int) -> dict:
                   "ssd_scan_bwd": cfg.n_layers,
                   "flash_attention": groups * (2 if full else 1),
                   "flash_attention_bwd": groups}
-        per_mb.update(causal_conv=2 * per_mb["ssd_scan"], causal_conv_bwd=2 * cfg.n_layers)
+        per_mb.update(causal_conv=2 * per_mb["ssd_scan"], causal_conv_bwd=2 * cfg.n_layers,
+                      expert_mm=0, expert_mm_bwd=0)
     return {name: microbatches * n for name, n in per_mb.items()}
 
 
@@ -1361,11 +1455,13 @@ def full_width_train(torch, fa, ssd):
     from repro_torch.launch.train import main as train_main
 
     from repro_torch.kernels import causal_conv as cc
+    from repro_torch.kernels import expert_mm as emm
 
     argv = TRAIN_ARGV
     counters = {"flash_attention": fa.flash_attention, "flash_attention_bwd": fa._launch_bwd,
                 "ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd._launch_bwd,
-                "causal_conv": cc.causal_conv_silu, "causal_conv_bwd": cc._launch_bwd}
+                "causal_conv": cc.causal_conv_silu, "causal_conv_bwd": cc._launch_bwd,
+                "expert_mm": emm.expert_mm, "expert_mm_bwd": emm._launch_bwd}
     for fn in counters.values():
         fn.launches = 0
     fa.flash_attention.mla_launches = fa._launch_bwd.mla_launches = 0
@@ -1402,6 +1498,7 @@ def live_seam(torch, fa, fd, ssd):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import causal_conv as cc
+    from repro_torch.kernels import expert_mm as emm
     from repro_torch.launch.elastic_cluster import MAX_SEQ, plan_batch
     from repro_torch.launch.elastic_cluster import main as cluster_main
     from repro_torch.models import init_params
@@ -1422,7 +1519,8 @@ def live_seam(torch, fa, fd, ssd):
     counters = {"flash_attention": fa.flash_attention, "flash_decode": fd.flash_decode,
                 "ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd._launch_bwd,
                 "flash_attention_bwd": fa._launch_bwd, "causal_conv": cc.causal_conv_silu,
-                "causal_conv_bwd": cc._launch_bwd}
+                "causal_conv_bwd": cc._launch_bwd, "expert_mm": emm.expert_mm,
+                "expert_mm_bwd": emm._launch_bwd}
     jobs = {}
     for fn in counters.values():
         fn.launches = 0
@@ -1460,9 +1558,9 @@ def live_seam(torch, fa, fd, ssd):
     if not ({"event": "od_acquire", "jid": -1, "source": "SPAA", "nodes": 4} in log
             and shrunk and shrunk <= {e["jid"] for e in log if e["event"] == "expand"}):
         raise AssertionError(f"no SPAA acquire with a shrink and its repaying expand: {log}")
-    # each kernel: launched in this phase, the training kernels as many times
-    # as train_launches says for the steps taken, serving 32 layers a prefill
-    # and 32 a decode step
+    # each kernel but the dropless MoE's (no MoE runs here): launched in this
+    # phase, the training kernels as many times as train_launches says for
+    # the steps taken, serving 32 layers a prefill and 32 a decode step
     cfg = get_config("zamba2_1p2b").with_(n_layers=LIVE_TRAIN_LAYERS)
     steps = sum(len(job.step_seconds) for job in jobs.values())
     serves = len(stats["served"])
@@ -1473,7 +1571,8 @@ def live_seam(torch, fa, fd, ssd):
     expected["flash_decode"] = serve_cfg.n_layers * decode_steps
     print(f"launches {launches}, expected {expected} ({steps} train steps, "
           f"{serves} serve batches, {decode_steps} decode steps)")
-    if launches != expected or not all(launches.values()):
+    if launches != expected or not all(n for k, n in launches.items()
+                                       if not k.startswith("expert_mm")):
         raise AssertionError(f"kernel launches {launches} != {expected}")
     _no_mla_launches(fa, launches, "live")
     # the served tokens are those of the same requests served again outside
@@ -1586,7 +1685,7 @@ def full_width_hybrid_serve(torch, fa, fd, ssd):
                 "ssd_scan": cfg.n_layers, "ssd_scan_bwd": 0, "flash_attention_bwd": 0,
                 "ssd_scan_final_state": cfg.n_layers, "flash_attention_mla": 0,
                 "flash_attention_bwd_mla": 0, "causal_conv": 2 * cfg.n_layers,
-                "causal_conv_bwd": 0}
+                "causal_conv_bwd": 0, "expert_mm": 0, "expert_mm_bwd": 0}
     print(f"launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -1710,7 +1809,8 @@ def launchers_on_card(torch, fa, fd, ssd):
                 "flash_decode": demo.n_layers * decode_steps, "ssd_scan": 0,
                 "ssd_scan_bwd": 0, "flash_attention_bwd": cfg.n_layers * QUICK_STEPS,
                 "ssd_scan_final_state": 0, "flash_attention_mla": 0,
-                "flash_attention_bwd_mla": 0, "causal_conv": 0, "causal_conv_bwd": 0}
+                "flash_attention_bwd_mla": 0, "causal_conv": 0, "causal_conv_bwd": 0,
+                "expert_mm": 0, "expert_mm_bwd": 0}
     print(f"launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -1990,7 +2090,8 @@ def full_width_moe_serve(torch, fa, fd, ssd):
     expected = {"flash_attention": cfg.n_layers, "flash_decode": cfg.n_layers * (MOE_NEW - 1),
                 "ssd_scan": 0, "ssd_scan_bwd": 0, "flash_attention_bwd": 0,
                 "ssd_scan_final_state": 0, "flash_attention_mla": 0,
-                "flash_attention_bwd_mla": 0, "causal_conv": 0, "causal_conv_bwd": 0}
+                "flash_attention_bwd_mla": 0, "causal_conv": 0, "causal_conv_bwd": 0,
+                "expert_mm": 0, "expert_mm_bwd": 0}
     print(f"launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -3364,6 +3465,152 @@ def mesh_train(torch, fa, fd, ssd, one_launches: dict, one_stats: dict) -> dict:
     return launches
 
 
+# ------------------------------------------- 30. OLMoE as published, trained
+def olmoe_published_cfg():
+    """olmoe-1b-7b with the published options on (QK-norm, dropless
+    routing, ungated top-8 weights), cut to OLMOE_LAYERS layers and one
+    microbatch: the program config the benchmark's olmoe-train runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config("olmoe_1b_7b")
+    return cfg.with_(n_layers=OLMOE_LAYERS, qk_norm=True, train_microbatches=1,
+                     moe=dataclasses.replace(cfg.moe, dropless=True, norm_topk=False))
+
+
+def dropless_layer_vs_loop(torch, cfg, tokens: int) -> dict:
+    """One dropless MoE layer at full width over `tokens` tokens, bf16,
+    forward and backward: the grouped GEMMs against the same layer with
+    `ops.expert_mm` swapped for the per-expert loop on the card.  Returns
+    each output's error relative to the loop's largest magnitude; fails
+    above 2e-2 or unless the grouped GEMMs launched 3 forward and 3
+    backward calls."""
+    from repro_torch.kernels import expert_mm as emm
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import moe
+    from repro_torch.models.moe import init_moe
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    p = init_moe(gen, cfg)
+    x = torch.randn((tokens // 2048, 2048, cfg.d_model), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    out = {}
+    for how in ("grouped", "loop"):
+        live = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        xi = x.detach().requires_grad_(True)
+        n0 = launch_counts()
+        swap = kops.expert_mm
+        if how == "loop":
+            kops.expert_mm = emm.expert_mm_plain
+        try:
+            y, aux = moe.moe_fwd(live, xi, cfg)
+            torch.autograd.backward([y, aux], [dy, torch.ones_like(aux)])
+        finally:
+            kops.expert_mm = swap
+        n1 = launch_counts()
+        out[how] = ({"y": y.detach(), "dx": xi.grad,
+                     **{f"d{k}": t.grad for k, t in live.items()}},
+                    (n1["expert_mm"] - n0["expert_mm"], n1["expert_mm_bwd"] - n0["expert_mm_bwd"]))
+    (got, n_got), (want, n_want) = out["grouped"], out["loop"]
+    rel = {k: _rel_err(got[k], want[k]) for k in want}
+    print(json.dumps({"dropless_layer_vs_loop": {"tokens": tokens, "max_rel_err": rel,
+                                                 "launches": [n_got, n_want]}}), flush=True)
+    if n_got != (3, 3) or n_want != (0, 0):
+        raise AssertionError(f"dropless layer: grouped GEMM launches {n_got} (loop {n_want}), "
+                             f"not 3 forward and 3 backward")
+    if not max(rel.values()) <= TOL["bfloat16"]:
+        raise AssertionError(f"dropless layer: grouped GEMMs differ from the per-expert loop "
+                             f"by {rel} > {TOL['bfloat16']}")
+    return rel
+
+
+def olmoe_published_train(torch, fa, fd, ssd):
+    """The benchmark's olmoe-train step outside the harness: one dropless
+    MoE layer against the per-expert loop (`dropless_layer_vs_loop`, at
+    the step's 8 x 2048 tokens), then `olmoe_published_cfg` at full width,
+    bf16, remat "full", OLMOE_STEPS train steps of OLMOE_BATCH x OLMOE_SEQ
+    tokens from seeded params, counts zeroed just before and read just
+    after: per step, attention forward 2 and backward 1 a layer, the
+    grouped GEMMs 6 forward (3, recomputed once) and 3 backward calls a
+    layer (48 / 24), nothing else.  Losses finite, the first near ln(vocab).
+    Then one more step under `torch.profiler` reduced as the benchmark
+    reduces its traces (`perfbench.trace`): every trace name of
+    `perfbench/kernels/expert_mm.json` must be there, or
+    `expert_mm_roofline.train` would read nothing.  Prints step seconds,
+    tokens/s, peak memory and the grouped GEMMs' device time with its
+    bound.  Returns the timed steps' launches."""
+    import gc
+
+    from perfbench import readers
+    from perfbench.kernels.expert_mm import cost
+    from perfbench.trace import Stretch
+    from repro_torch.models import init_params
+    from repro_torch.training import AdamW, make_train_state, make_train_step, synthetic_batch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = olmoe_published_cfg()
+    dropless_layer_vs_loop(torch, cfg, OLMOE_BATCH * OLMOE_SEQ)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamW()
+    state = make_train_state(init_params(cfg, seed=0, device="cuda"), opt)
+    step = make_train_step(cfg, opt, microbatches=1)
+    batch = synthetic_batch(cfg, OLMOE_BATCH, OLMOE_SEQ, device="cuda")
+    torch.cuda.synchronize()
+    counters = _zeroed_counters(fa, fd, ssd)
+    losses, step_s = [], []
+    for _ in range(OLMOE_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = train_launches(cfg, 1)
+    print(json.dumps({"olmoe_train": {"step_seconds": step_s, "losses": losses,
+                                      "tokens_per_s": OLMOE_BATCH * OLMOE_SEQ / min(step_s[1:]),
+                                      "max_memory_allocated": peak},
+                      "launches": launches}), flush=True)
+    _expect_launches(launches, "olmoe published train",
+                     **{k: OLMOE_STEPS * n for k, n in per_step.items()})
+    if not (all(math.isfinite(x) for x in losses) and abs(losses[0] - math.log(cfg.vocab)) < 1.5):
+        raise AssertionError(f"losses {losses}: not finite, or the first far from "
+                             f"ln {cfg.vocab} = {math.log(cfg.vocab):.2f}")
+    with Stretch(torch.device("cuda")) as st:
+        state, m = step(state, batch)
+    kernel_s = st.reduce()["kernel_s"]
+    names = readers.kernel_names("expert_mm")
+    # the CUTLASS names share their first hundreds of characters: shown by index
+    short = {n: n if len(n) <= 60 else f"cutlass_grouped_gemm_{i}"
+             for i, n in enumerate(sorted(names))}
+    missing = sorted(short[n] for n in names if n not in kernel_s)
+    R = OLMOE_BATCH * OLMOE_SEQ * cfg.moe.top_k
+    shape = (R, cfg.d_model, cfg.moe.d_expert, cfg.moe.n_experts, 2)
+    bound_s = 0.0
+    for count, (flops, nbytes) in ((per_step["expert_mm"], cost(*shape)),
+                                   (per_step["expert_mm_bwd"], cost(*shape, backward=True))):
+        bound_s += count * max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S)
+    dev_s = sum(kernel_s.get(n, 0.0) for n in names)
+    print(json.dumps({"olmoe_expert_mm": {
+        "device_ms": 1e3 * dev_s, "bound_ms": 1e3 * bound_s,
+        "roofline_pct": 100.0 * bound_s / dev_s if dev_s else None,
+        "by_name_ms": {short[n]: 1e3 * kernel_s.get(n, 0.0) for n in sorted(names)},
+        "step_device_ms": 1e3 * sum(kernel_s.values())}}), flush=True)
+    if missing:
+        raise AssertionError(f"a traced olmoe step ran none of {missing} "
+                             "(perfbench/kernels/expert_mm.json): the grouped GEMMs go by other "
+                             "names, and expert_mm_roofline.train would read nothing")
+    del state, step, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3406,6 +3653,7 @@ def main(argv=None) -> int:
     rows = kernel_cases(torch, F, fa, fd, clock)
     rows.update(training_kernel_cases(torch, F, fa, ssd, clock))
     rows.update(conv_kernel_cases(torch, clock))
+    rows.update(expert_mm_kernel_cases(torch, clock))
     del clock
     kernel_breakdown(torch, fd, ssd)
     if args.kernels_only:
@@ -3512,6 +3760,10 @@ def main(argv=None) -> int:
           "launch/train.py --mesh 1x1)")
     mesh_train_launches = mesh_train(torch, fa, fd, ssd, train_launches_seen, train_stats)
 
+    phase(f"30. olmoe-1b-7b-0924 as published (QK-norm, dropless, ungated top-8; full width, "
+          f"{OLMOE_LAYERS} layers, bf16, {OLMOE_STEPS} steps of {OLMOE_BATCH} x {OLMOE_SEQ})")
+    olmoe_train_launches = olmoe_published_train(torch, fa, fd, ssd)
+
     phase("8. kernels")
     main_shape = {
         "flash_attention": ("bfloat16", dict(B=8, S=512, H=32, K=8, D=128)),
@@ -3526,6 +3778,8 @@ def main(argv=None) -> int:
                                                      S=MLA_TRAIN_SEQ)),
         "causal_conv": ("bfloat16", CONV_SHAPES[0]),
         "causal_conv_bwd": ("bfloat16", CONV_SHAPES[0]),
+        "expert_mm": ("bfloat16", EXPERT_MM_SHAPES[0]),
+        "expert_mm_bwd": ("bfloat16", EXPERT_MM_SHAPES[0]),
     }
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -3545,6 +3799,10 @@ def main(argv=None) -> int:
                         "none: the jnp `_causal_conv` + silu, src/repro/models/ssm.py:57"),
         "causal_conv_bwd": (csrc + "causal_conv.cu",
                             "none: autodiff of src/repro/models/ssm.py:57"),
+        "expert_mm": ("src/repro_torch/kernels/expert_mm.py: torch._grouped_mm",
+                      "none: the reference has no dropless MoE"),
+        "expert_mm_bwd": ("src/repro_torch/kernels/expert_mm.py: torch._grouped_mm",
+                          "none: the reference has no dropless MoE"),
     }
     kernels = []
     for name, (dtn, c) in main_shape.items():
@@ -3566,7 +3824,8 @@ def main(argv=None) -> int:
                    "vlm_train": vl_train_launches["vlm"][name],
                    "audio_train": vl_train_launches["audio"][name],
                    "mla_train": mla_train_launches[name],
-                   "mesh_train": mesh_train_launches[name]}
+                   "mesh_train": mesh_train_launches[name],
+                   "olmoe_train": olmoe_train_launches[name]}
         f32 = rows.get((case, "float32", tuple(sorted(c.items()))))
         kernels.append({"name": name, "route": "cuda", "source": meta[name][0],
                         "replaces": meta[name][1], "launches": sum(by_path.values()),

@@ -8,6 +8,7 @@ and `reset_launch_counts` sets them to 0, in the calling process.
 
 def _counters():
     from . import causal_conv as cc
+    from . import expert_mm as emm
     from . import flash_attention as fa
     from . import flash_decode as fd
     from . import ssd_scan as ssd
@@ -22,7 +23,9 @@ def _counters():
             "flash_attention_mla": (fa.flash_attention, "mla_launches"),
             "flash_attention_bwd_mla": (fa._launch_bwd, "mla_launches"),
             "causal_conv": (cc.causal_conv_silu, "launches"),
-            "causal_conv_bwd": (cc._launch_bwd, "launches")}
+            "causal_conv_bwd": (cc._launch_bwd, "launches"),
+            "expert_mm": (emm.expert_mm, "launches"),
+            "expert_mm_bwd": (emm._launch_bwd, "launches")}
 
 
 def launch_counts() -> dict:

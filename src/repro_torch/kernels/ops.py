@@ -2,7 +2,7 @@
 and `ops.ssd_scan`.
 
 Three dispatch points are the reference's (`ops.py:216`, `:221` and
-`:263`); the fourth is the port's own:
+`:263`); the fourth and fifth are the port's own:
 
   * causal self-attention with Sq == Skv (prefill, training)
                                                      -> `flash_attention`;
@@ -12,7 +12,9 @@ Three dispatch points are the reference's (`ops.py:216`, `:221` and
   * the causal depthwise conv and its SiLU from zero history (Mamba-2's
     `conv_x` and `conv_bc`, the mLSTM's conv; training and prefill; the
     reference's is jnp, `repro.models.ssm._causal_conv`)
-                                                     -> `causal_conv`.
+                                                     -> `causal_conv`;
+  * the dropless MoE's grouped products of rows sorted by expert (the
+    reference has no dropless path)                  -> `expert_mm`.
 
 The reference sends the SSD scan with a final state to its jnp path (its
 Pallas kernel has no state output); the port's kernels write the state as
@@ -27,8 +29,9 @@ The routing rule, decided by shape before any launch:
     (D, Dv) = (192, 128) and (48, 32); n or p over 64, a chunk over 1024
     or s not a multiple of it for the SSD scan; more than 4 taps, channels
     not a multiple of 8 or a dtype other than float32 and bfloat16 for the
-    conv) raises `ValueError` before any launch: no call on the card gives
-    way to a plain version.
+    conv; a dtype other than bfloat16 or widths not multiples of 8 for the
+    grouped products) raises `ValueError` before any launch: no call on the
+    card gives way to a plain version.
 
 Everything else (non-causal and cross attention, Sq != Skv, the one-token
 SSD recurrence `ssd_step` of hybrid decode, the conv of one decode token
@@ -47,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from . import causal_conv as cc
+from . import expert_mm as emm
 from . import flash_attention as fa
 from . import flash_decode as fd
 from . import ssd_scan as ssd
@@ -97,6 +101,14 @@ def causal_conv_silu(x, w, b):
     CUDA tensor (inputs it does not `supports` raise), the plain shifted
     multiplies and `F.silu` on a CPU tensor."""
     return cc.causal_conv_silu(x, w, b)
+
+
+def expert_mm(x, w, offsets):
+    """Rows x (R, K) sorted by expert, each group times its expert's w (E,
+    K, N), offsets (E,) int32 the groups' ends on x's device: the grouped
+    GEMMs on a CUDA tensor (inputs they do not `supports` raise), the
+    per-expert loop on a CPU tensor."""
+    return emm.expert_mm(x, w, offsets)
 
 
 def ssd_step(state, x_t, dt_t, A, B_t, C_t, D):

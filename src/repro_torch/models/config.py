@@ -27,6 +27,11 @@ class MoEConfig:
     d_first_dense: int = 0
     token_chunk: int = 0          # process tokens in chunks of this size
                                   # (bounds the (T*k, d) dispatch buffers)
+    # the port's own options (the reference has neither; the defaults are
+    # its behaviour)
+    dropless: bool = False        # every assignment runs: sorted by expert,
+                                  # grouped GEMMs over variable row counts
+    norm_topk: bool = True        # renormalise the top-k gates to sum to 1
 
 
 @dataclass(frozen=True)
@@ -76,6 +81,8 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None
     xlstm: Optional[XLSTMConfig] = None
     attn_every: int = 0           # hybrid: shared attn block every k layers
+    qk_norm: bool = False         # RMSNorm on the flat q and k projections
+                                  # before RoPE (OLMoE; the port's own option)
     # enc-dec (audio) --------------------------------------------------------
     n_enc_layers: int = 0
     enc_len: int = 1024           # frame embeddings from the stub frontend

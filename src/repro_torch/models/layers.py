@@ -108,12 +108,23 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig, lead=()) -> Params:
     d, H, K, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head
     dt = torch_dtype(cfg.param_dtype)
     s = d ** -0.5
-    return {
+    p = {
         "wq": _init(gen, (*lead, d, H, Dh), s, dt),
         "wk": _init(gen, (*lead, d, K, Dh), s, dt),
         "wv": _init(gen, (*lead, d, K, Dh), s, dt),
         "wo": _init(gen, (*lead, H, Dh, d), (H * Dh) ** -0.5, dt),
     }
+    if cfg.qk_norm:   # RMSNorm scales over the flat projections, drawing nothing
+        device = "meta" if gen is None else gen.device
+        p["q_norm"] = torch.ones((*lead, H * Dh), dtype=dt, device=device)
+        p["k_norm"] = torch.ones((*lead, K * Dh), dtype=dt, device=device)
+    return p
+
+
+def _qk_normed(t: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """QK-norm: `rmsnorm` of t (B, S, H, Dh) over its flat H * Dh."""
+    flat = rmsnorm({"scale": scale}, t.reshape(*t.shape[:2], -1), eps)
+    return flat.reshape(t.shape)
 
 
 def gqa_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -132,6 +143,8 @@ def gqa_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
          in place at min(cache_index, S - Sq), as JAX's
          dynamic_update_slice clamps, and attention runs over the first
          min(cache_index + Sq, S) rows.
+    With cfg.qk_norm, q and k are normed over their flat projections before
+    any RoPE, in every mode (so decode caches the normed k).
     Returns (out, cache or None).
     """
     ct = torch_dtype(cfg.compute_dtype)
@@ -139,6 +152,9 @@ def gqa_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     src = x if kv_source is None else kv_source
     k = dist.constrain_heads(torch.einsum("bsd,dhk->bshk", src, p["wk"].to(ct)))
     v = dist.constrain_heads(torch.einsum("bsd,dhk->bshk", src, p["wv"].to(ct)))
+    if cfg.qk_norm:
+        q = _qk_normed(q, p["q_norm"], cfg.norm_eps)
+        k = _qk_normed(k, p["k_norm"], cfg.norm_eps)
     if kv_source is not None:
         out = dist.local_heads(lambda q, k, v: kops.attention(
             q, k, v, causal=False, block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv),

@@ -6,6 +6,16 @@ C+1, d) buffer whose last slot takes the overflow, the experts as three
 batched GEMMs, the gated combine, the Switch load-balance aux loss, and
 optional shared (always-on) experts.
 
+Two options of the port's own, whose defaults are the reference's
+behaviour: `MoEConfig.norm_topk=False` keeps the top-k softmax
+probabilities as the gates, unrenormalised (OLMoE's `norm_topk_prob`), and
+`MoEConfig.dropless=True` drops nothing: the T * k assignments are put in
+expert order by a stable sort (ties stay token-major), each expert's group
+ends at an offset from a device-side count, and the experts run as grouped
+GEMMs over those variable row counts (`kernels.ops.expert_mm`); no count is
+read on the host, and the (E, C+1, d) buffer and the one-hot cumsum are
+not used.
+
 With a mesh that has a `model` axis (`models.dist.set_mesh`), the
 reference's `shard_map` branch: the experts are sharded over `model` and
 the batch over the dp axes (`local_map`); each rank routes its local
@@ -30,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tracing
+from repro_torch.kernels import ops as kops
 from . import dist
 from .config import ModelConfig, torch_dtype
 from .layers import _init, init_swiglu, swiglu_fwd
@@ -62,19 +73,27 @@ def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
     return max(8, -(-c // 8) * 8)
 
 
-def _route(x2d: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
-           capacity: int):
-    """Top-k routing of x2d (T, d).  Assignments are flattened token-major
-    (a = t * k + j), so earlier tokens claim an expert's slots first.
-    Returns (probs (T, E) f32, gate (A,) f32 renormalised over each token's
-    k, eid (A,), keep (A,) bool, slot (A,): the assignment's position in
-    its expert, or `capacity` (the trash slot) where it overflowed)."""
+def _top_k(x2d: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """(probs (T, E) f32, gate (A,) f32, eid (A,)) of x2d (T, d), the
+    assignments flattened token-major (a = t * k + j); the gates are
+    renormalised over each token's k unless `moe.norm_topk` is off."""
     m = cfg.moe
     logits = x2d.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
     top_w, top_e = torch.topk(probs, m.top_k, dim=-1)
-    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
-    eid = top_e.reshape(-1)
+    if m.norm_topk:
+        top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    return probs, top_w.reshape(-1), top_e.reshape(-1)
+
+
+def _route(x2d: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
+           capacity: int):
+    """Top-k routing of x2d (T, d) with capacity: earlier tokens claim an
+    expert's slots first.  Returns (probs (T, E) f32, gate (A,) f32, eid
+    (A,), keep (A,) bool, slot (A,): the assignment's position in its
+    expert, or `capacity` (the trash slot) where it overflowed)."""
+    m = cfg.moe
+    probs, gate, eid = _top_k(x2d, router, cfg)
     # the one-hot by comparison (no value check that reads the data, so a
     # trace on fake tensors runs it)
     onehot = (eid[:, None] == torch.arange(m.n_experts, device=eid.device)).to(torch.int32)
@@ -82,7 +101,63 @@ def _route(x2d: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
     pos = torch.gather(pos, 1, eid[:, None])[:, 0]
     keep = pos < capacity
     slot = torch.where(keep, pos, capacity).long()
-    return probs, top_w.reshape(-1), eid, keep, slot
+    return probs, gate, eid, keep, slot
+
+
+class _Rows(torch.autograd.Function):
+    """rows[j] = x[src[j]], whose gradient is gathered back through `back`
+    and summed over groups of `k` rows, with no scatter: the dispatch's
+    gather (src = each sorted assignment's token, back the inverse
+    permutation: token t's k rows are back[t k .. t k + k - 1]) and the
+    combine's (src the inverse permutation, back the permutation, k = 1).
+    So the backward adds no float atomics and repeats bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, src, back, k: int):
+        ctx.save_for_backward(back)
+        ctx.k = k
+        return x.index_select(0, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        (back,) = ctx.saved_tensors
+        gx = g.index_select(0, back)
+        if ctx.k > 1:
+            gx = gx.reshape(-1, ctx.k, g.shape[-1]).sum(dim=1)
+        return gx, None, None, None
+
+
+def _moe_dropless(x2d: torch.Tensor, p: Params, cfg: ModelConfig):
+    """Every assignment of x2d (T, d) through its expert: sorted by expert,
+    the experts as grouped GEMMs, the gated rows put back in token order and
+    each token's k summed.  Returns (y (T, d) in x2d's dtype, frac_prob (E,),
+    assigned (E,), T)."""
+    m = cfg.moe
+    T, d = x2d.shape
+    k, E = m.top_k, m.n_experts
+    ct = x2d.dtype
+    with tracing.span("models.moe.route", device_time=True):
+        probs, gate, eid = _top_k(x2d, p["router"], cfg)
+        frac_prob = probs.mean(dim=0)
+        # each expert's assignments as exact small integers (bincount's
+        # output size reads the data); their running sum ends each group
+        counts = torch.zeros(E, dtype=torch.int32, device=eid.device).index_add_(
+            0, eid, torch.ones(eid.shape, dtype=torch.int32, device=eid.device))
+        offsets = torch.cumsum(counts, dim=0, dtype=torch.int32)
+        assigned = counts.float()
+    with tracing.span("models.moe.dispatch", device_time=True):
+        perm = torch.sort(eid, stable=True).indices        # sorted slot -> assignment
+        inv = torch.empty_like(perm).scatter_(0, perm, torch.arange(
+            perm.numel(), device=perm.device))              # assignment -> sorted slot
+        xs = _Rows.apply(x2d, perm // k, inv, k)
+    with tracing.span("models.moe.experts", device_time=True):
+        g = kops.expert_mm(xs, p["w1"].to(ct), offsets)
+        u = kops.expert_mm(xs, p["w3"].to(ct), offsets)
+        h = kops.expert_mm(F.silu(g) * u, p["w2"].to(ct), offsets)      # (A, d) sorted
+    with tracing.span("models.moe.combine", device_time=True):
+        rows = _Rows.apply(h, inv, perm, 1)                 # token-major again
+        y = (rows * gate.to(ct)[:, None]).reshape(T, k, d).sum(dim=1)
+    return y, frac_prob, assigned, T
 
 
 def _moe_local(x2d: torch.Tensor, p: Params, cfg: ModelConfig, capacity: int,
@@ -146,6 +221,9 @@ def _moe_ep(p: Params, x, cfg: ModelConfig, mesh):
 
     from repro_torch.sharding import placements
     m = cfg.moe
+    if m.dropless:
+        raise NotImplementedError("moe.dropless: the expert-parallel branch keeps the "
+                                  "reference's capacity dispatch; run dropless on one device")
     B, S, d = x.shape
     names = mesh.mesh_dim_names
     ba = dist.batch_axes()
@@ -199,6 +277,9 @@ def moe_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig
     mesh = dist.get_mesh()
     if mesh is not None and "model" in mesh.mesh_dim_names:
         y, frac_prob, assigned, T = _moe_ep(p, x, cfg, mesh)
+    elif m.dropless:
+        y, frac_prob, assigned, T = _moe_dropless(x.reshape(B * S, d), p, cfg)
+        y = y.reshape(B, S, d)
     else:
         y, frac_prob, assigned, T = _moe_local(x.reshape(B * S, d), p,
                                                cfg, _capacity(B * S, cfg))

@@ -34,6 +34,7 @@ The spans (* device time, ** device time in a backward pass):
   training.step* > training.forward*, training.backward*,
                    training.optimizer* [host_syncs]
   models.mamba2**, models.block**, models.moe.{route,dispatch,experts,combine}
+  (* on the dropless path alone)
   serving.batch (rids) > serving.prefill [host_syncs],
                          serving.decode_step (pos) [host_syncs]
 

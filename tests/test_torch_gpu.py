@@ -17,6 +17,8 @@ scale-relative (error over the largest magnitude of the reference), as
 `tests/test_kernels.py` holds the SSD kernel: their outputs span orders of
 magnitude.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -1024,3 +1026,178 @@ def test_mesh_train_on_one_nccl_rank_equals_one_device(cuda):
     assert launches == one_launches
     assert launches["ssd_scan"] > 0 and launches["flash_attention_bwd"] > 0
     np.testing.assert_allclose(mesh["losses"], one["losses"], rtol=1e-5, atol=0)
+
+
+# ------------------------------------------- OLMoE as published: dropless MoE
+def _olmoe_published(dtype="bfloat16"):
+    """Reduced olmoe with the published options (QK-norm, dropless routing,
+    ungated top-k weights): the grouped expert GEMMs take bf16 alone."""
+    from repro_torch.configs.reduced import reduced
+    cfg = reduced("olmoe_1b_7b")
+    return cfg.with_(qk_norm=True, param_dtype=dtype, compute_dtype=dtype,
+                     moe=dataclasses.replace(cfg.moe, dropless=True, norm_topk=False))
+
+
+def _grouped_rows(R, E, seed, device, skew=0.0):
+    """Expert ids of R rows, sorted, with two experts left empty; skew > 0
+    piles rows onto expert 0."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    w = torch.ones(E)
+    w[0] += skew * E
+    w[[3, E - 2]] = 0.0
+    eid = torch.multinomial(w, R, replacement=True, generator=gen).sort().values
+    counts = torch.bincount(eid, minlength=E)
+    return counts.tolist(), counts.cumsum(0).to(torch.int32).to(device)
+
+
+@pytest.mark.parametrize("R,K,N", [(131072, 2048, 1024), (131072, 1024, 2048), (4099, 128, 64)])
+def test_expert_mm_against_per_expert_matmuls(cuda, R, K, N):
+    """The grouped GEMMs at OLMoE's shapes (R = 8 x 2048 x top-8 rows, d 2048
+    <-> d_expert 1024) and a ragged small one against per-expert products in
+    f32 from the same bf16 inputs, forward, dX and dW, with two empty experts
+    (whose dW is 0); 2e-2 of the largest magnitude (bf16 outputs)."""
+    from repro_torch.kernels import expert_mm as emm
+    E = 64
+    counts, offsets = _grouped_rows(R, E, R + K, cuda, skew=0.5)
+    rng = np.random.default_rng(K)
+    x = _rnd(rng, (R, K), torch.bfloat16, cuda).requires_grad_(True)
+    w = (_rnd(rng, (E, K, N), torch.bfloat16, cuda) * K ** -0.5).requires_grad_(True)
+    dy = _rnd(rng, (R, N), torch.bfloat16, cuda)
+    n0 = (emm.expert_mm.launches, emm._launch_bwd.launches)
+    y = emm.expert_mm(x, w, offsets)
+    dx, dw = torch.autograd.grad(y, [x, w], dy)
+    assert (emm.expert_mm.launches - n0[0], emm._launch_bwd.launches - n0[1]) == (1, 1)
+    ends = np.cumsum(counts)
+    ys, dxs, dws = [], [], []
+    for e, (s, t) in enumerate(zip([0, *ends[:-1]], ends)):
+        xe, we, ge = x[s:t].float(), w[e].float(), dy[s:t].float()
+        ys.append(xe @ we)
+        dxs.append(ge @ we.T)
+        dws.append(xe.T @ ge)
+    for got, want in ((y, torch.cat(ys)), (dx, torch.cat(dxs)), (dw, torch.stack(dws))):
+        assert _err(got.detach(), want.detach()) < 2e-2 * float(want.detach().abs().max())
+    assert float(dw[3].abs().max()) == 0.0 and float(dw[E - 2].abs().max()) == 0.0
+
+
+def test_dropless_moe_layer_reads_nothing_on_the_host(cuda):
+    """One dropless MoE layer at OLMoE's widths (2 x 2048 tokens), forward and
+    backward, under CUDA's sync debug mode set to raise: routing, sort,
+    offsets, grouped GEMMs and combine wait for nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.moe import init_moe
+    cfg = get_config("olmoe_1b_7b")
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, dropless=True, norm_topk=False))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = {k: v.requires_grad_(True) for k, v in init_moe(gen, cfg).items()}
+    x = torch.randn(2, 2048, cfg.d_model, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    dy = torch.randn_like(x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe.moe_fwd(p, x, cfg)
+        torch.autograd.backward([y, aux], [dy, torch.ones_like(aux)])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(x.grad.float()).all() and torch.isfinite(p["w2"].grad.float()).all()
+
+
+def test_olmoe_published_reduced_on_the_card_against_the_cpu(cuda, monkeypatch):
+    """The reduced published variant in bf16, the same seeded params on the
+    card and on the CPU: forward logits, the loss and every leaf's gradient
+    within 2e-2 relative (bf16 products summed in other orders).  The CPU
+    takes the card's top-k choices, its gates from its own probabilities:
+    bf16 rounding flips near-tied choices between the two (6 % of OLMoE's
+    top-8 sets at full width, 8 x 2048 tokens), and a flip moves a token's
+    output by a whole expert."""
+    from repro_torch.models import TrainBatch, forward, init_params, loss_fn, moe
+    from repro_torch.training import synthetic_batch
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+
+    real, picked = moe._top_k, []
+
+    def pick(x2d, router, c):
+        probs, gate, eid = real(x2d, router, c)
+        if x2d.device.type == "cuda":
+            picked.append(eid.cpu())
+            return probs, gate, eid
+        eid = picked.pop(0)
+        gate = probs.gather(1, eid.reshape(-1, c.moe.top_k))
+        return probs, gate.reshape(-1), eid
+
+    monkeypatch.setattr(moe, "_top_k", pick)
+    cfg = _olmoe_published()
+    params = init_params(cfg, seed=0, device="cpu")
+    batch = synthetic_batch(cfg, 2, 64, device="cpu")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(True), params)
+        b = TrainBatch(batch.tokens.to(dev), batch.labels.to(dev))
+        with torch.no_grad():
+            logits = forward(p, b.tokens, cfg)
+        loss, _ = loss_fn(p, b, cfg)
+        grads = torch.autograd.grad(loss, list(tree_leaves(p)))
+        out[dev] = (logits.float().cpu(), float(loss.detach()), [g.float().cpu() for g in grads])
+    (lc, sc, gc), (lg, sg, gg) = out["cpu"], out["cuda"]
+    assert float((lg - lc).norm() / lc.norm()) < 2e-2
+    assert abs(sg - sc) < 2e-2 * abs(sc)
+    for a, b in zip(gg, gc, strict=True):
+        assert float((a - b).norm() / b.norm()) < 2e-2
+
+
+def test_olmoe_published_train_step_repeats_bit_for_bit(cuda):
+    """Two train steps of the reduced published variant (bf16) from the same
+    state and batch give the same params and moments to the bit: the stable
+    sort, the gathers and the grouped GEMMs are deterministic and nothing is
+    summed by float atomics."""
+    from repro_torch.models import init_params
+    from repro_torch.training import (AdamW, make_train_state, make_train_step,
+                                      synthetic_batch)
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+
+    cfg = _olmoe_published()
+    opt = AdamW(warmup=1, total_steps=4)
+    params = init_params(cfg, seed=0, device=cuda)
+    batch = synthetic_batch(cfg, 4, 128, device=cuda)
+    step = make_train_step(cfg, opt)
+    outs = []
+    for _ in range(2):
+        state, m = step(make_train_state(tree_map(torch.clone, params), opt), batch)
+        outs.append((float(m["loss"]), list(tree_leaves(state.params)),
+                     list(tree_leaves(state.opt.m))))
+    assert outs[0][0] == outs[1][0]
+    for a, b in zip(outs[0][1] + outs[0][2], outs[1][1] + outs[1][2], strict=True):
+        assert torch.equal(a, b)
+
+
+def test_a_traced_dropless_layer_runs_every_name_the_roofline_reads(cuda):
+    """`expert_mm_roofline.train` finds the grouped GEMMs' device time by the
+    trace names in perfbench/kernels/expert_mm.json, which name CUTLASS
+    template instances: one dropless MoE layer at the olmoe-train step's
+    shapes (8 x 2048 tokens, d 2048 <-> 1024 over 64 experts), forward and
+    backward, traced and reduced as the benchmark reduces its traces, must
+    run every one of them, or the metric would read nothing."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from perfbench import readers
+    from perfbench.trace import Stretch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.moe import init_moe
+    cfg = get_config("olmoe_1b_7b")
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, dropless=True, norm_topk=False))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    p = {k: v.requires_grad_(True) for k, v in init_moe(gen, cfg).items()}
+    x = torch.randn(8, 2048, cfg.d_model, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with Stretch(x.device) as st:
+        y, aux = moe.moe_fwd(p, x, cfg)
+        torch.autograd.backward([y, aux], [torch.ones_like(y), torch.ones_like(aux)])
+    kernel_s = st.reduce()["kernel_s"]
+    names = readers.kernel_names("expert_mm")
+    assert len(names) == 4
+    assert sorted(n[:60] for n in names if n not in kernel_s) == []
+    assert all(kernel_s[n] > 0 for n in names)

@@ -346,7 +346,8 @@ def test_train_step_kernel_calls_match_chip_smokes_count(monkeypatch, remat):
     assert len(calls) == want["flash_attention"]
     assert want == {"flash_attention": 2 * cfg.n_layers * (2 if remat == "full" else 1),
                     "flash_attention_bwd": 2 * cfg.n_layers, "ssd_scan": 0,
-                    "ssd_scan_bwd": 0, "causal_conv": 0, "causal_conv_bwd": 0}
+                    "ssd_scan_bwd": 0, "causal_conv": 0, "causal_conv_bwd": 0,
+                    "expert_mm": 0, "expert_mm_bwd": 0}
 
 
 def test_serve_and_train_clis_run_olmoe_on_cpu():
