@@ -79,6 +79,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                 d_expert 1024 over 64 experts (two empty), against the
                 per-expert products in f32 and timed beside the per-expert
                 loop.
+                Then AdamW's kernels (clip norm and update) at olmoe-train's
+                1.07e9-element expert leaf and over zamba2-1.2b's whole tree,
+                3 steps from drawn non-zero moments against the plain version
+                given the kernels' norm (bit for bit), each timed beside it
+                and beside torch's fused AdamW.
                 Then `torch.profiler`'s device time of each CUDA kernel that
                 one flash_decode call, one bf16 ssd_scan call and one bf16
                 SSD backward call launch, at the main path's shapes (L2
@@ -91,8 +96,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 64 new tokens each, max_seq 1024; the kernels' launch counts
                 are zeroed just before and read just after.
   6. train and serve parity -- reduced zamba2 in f32 (TF32 off), the same
-                seeded params stepped once on the card (kernels) and on the
-                CPU (plain versions): loss, grad norm and params within 1e-4;
+                seeded params stepped 3 times on one batch on the card
+                (kernels) and on the CPU (plain versions): the last loss and
+                grad norm, and the params, within 1e-4;
                 then the same step in bf16, which runs the tensor-core
                 attention kernels through the model's autograd: loss and
                 grad norm within 2e-2 relative (the kernels round P and dS
@@ -334,8 +340,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 NCCL rank: `runtime/ranks.py` spawns a rank process on
                 cuda:0, which runs `launch.train.main(... "--mesh", "1x1")`
                 (the state and batches as DTensors, the kernels through
-                `local_map`).  Counts zeroed and read in the rank; asserts
-                phase 7's launches, its losses within 2e-2 relative and no
+                `local_map`, AdamW's on each leaf's local shard).  Counts
+                zeroed and read in the rank; asserts phase 7's launches, its
+                losses within 2e-2 relative and no
                 launch in this process; prints both paths' step seconds and
                 peak memory, paired.
   30. OLMoE as published -- olmoe-1b-7b with QK-norm, dropless routing
@@ -636,23 +643,28 @@ def sdpa_fastest(torch, clock, call, iters: int):
 
 
 def timed_row(torch, clock, run, plain, lib, iters: int, flops, nbytes, dtn,
-              lib_backward=False) -> dict:
+              lib_backward=False, lib_label=None) -> dict:
     """The timing columns of a phase-3 row: kernel, plain version and the
     library call (an SDPA forward call, or None), beside the bound.  With
     lib_backward, `lib` is the backward of an SDPA graph already built on
-    the default backend, timed as it is."""
+    the default backend, timed as it is; with lib_label, `lib` is another
+    library's call, timed as it is and named so."""
     ms, host_ms = clock(run, iters)
     plain_ms, plain_host_ms = clock(plain, iters)
+    label = None
     if lib is None:
-        lib_ms, lib_host_ms, lib_name = None, None, None
+        lib_ms, lib_host_ms = None, None
+    elif lib_label is not None:
+        (lib_ms, lib_host_ms), label = clock(lib, iters), lib_label
     elif lib_backward:
-        (lib_ms, lib_host_ms), lib_name = clock(lib, iters), "default backward"
+        (lib_ms, lib_host_ms), label = clock(lib, iters), "sdpa:default backward"
     else:
         lib_ms, lib_host_ms, lib_name = sdpa_fastest(torch, clock, lib, iters)
+        label = f"sdpa:{lib_name}"
     t_ops, t_bytes = flops / PEAK_FLOPS[dtn], nbytes / HBM_BYTES_PER_S
     return {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
             "plain_host_ms": plain_host_ms, "library_ms": lib_ms,
-            "library_host_ms": lib_host_ms, "library": lib_name and f"sdpa:{lib_name}",
+            "library_host_ms": lib_host_ms, "library": label,
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes}
@@ -936,7 +948,7 @@ def _rel_err(out, ref):
 
 
 def _row(torch, clock, kname, dtn, c, errs, flops, nbytes, run, plain, lib, iters,
-         lib_backward=False):
+         lib_backward=False, lib_label=None):
     """Check the relative errors, time the three calls, print and return."""
     err_abs = max(e[0] for e in errs.values())
     err_rel = max(e[1] for e in errs.values())
@@ -945,7 +957,7 @@ def _row(torch, clock, kname, dtn, c, errs, flops, nbytes, run, plain, lib, iter
     row = {"kernel": kname, "dtype": dtn, **c, "max_abs_err": err_abs,
            "max_rel_err": err_rel, "rel_errs": {k: e[1] for k, e in errs.items()},
            **timed_row(torch, clock, run, plain, lib, iters, flops, nbytes, dtn,
-                       lib_backward)}
+                       lib_backward, lib_label)}
     print(json.dumps(row), flush=True)
     return row
 
@@ -1265,6 +1277,126 @@ def expert_mm_kernel_cases(torch, clock):
     return rows
 
 
+# ---------------------------------------------------------------- 3e. AdamW
+# olmoe-train's largest leaf (a stacked expert weight: 8 layers x 64 experts x
+# d_model 2048 x d_expert 1024, bf16) and zamba2-1.2b's whole tree (25 leaves,
+# bf16 and f32); the gradients drawn at 1e-4, so the clip scales them
+ADAMW_CASES = [dict(leaf="olmoe_expert_w1", n=8 * 64 * 2048 * 1024),
+               dict(tree="zamba2-1.2b", n=1_170_396_032)]
+# steps from one drawn state: the first at this count (bias corrections
+# 1 - b^t well away from 1 and from 0), lr 3e-4 past a one-step warmup, so a
+# step moves a 0.02 bf16 weight by a few ulps
+ADAMW_STEP0, ADAMW_STEPS = 10, 3
+
+
+def adamw_kernel_cases(torch, clock):
+    """AdamW's kernels (the clip norm's sum of squares, the sum of its
+    partials, one update a leaf) against the plain version on the card, at
+    ADAMW_CASES: ADAMW_STEPS steps from one drawn state (non-zero m and v,
+    fresh gradients each step), the plain version clipped by the kernels'
+    norm, which must be the f64 norm's within 1e-6.  After every step p, m
+    and v must equal the plain version's bit for bit, and the last step must
+    have moved most elements of p.  The row's errors are the last step's
+    change of p, and m and v, each relative to the plain version's largest
+    magnitude.  Then timed, a step each: `plain_ms` the ~20 torch passes a
+    leaf the kernels replaced; `library_ms` torch's own fused AdamW as a
+    yardstick (`torch._foreach_norm` for the clip, `torch._fused_adamw_`
+    taking the clip as its grad scale), on f32 copies of p and g, since it
+    keeps its four lists in one dtype: 32 bytes an element and a write of
+    g, against the kernels' 24; `bound_ms` the compulsory bytes of
+    perfbench/kernels/adamw.py over the HBM bandwidth.  Returns the rows
+    keyed like kernel_cases'."""
+    import gc
+
+    from perfbench.kernels.adamw import cost
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw
+    from repro_torch.models import init_params
+    from repro_torch.training import AdamW
+    from repro_torch.training.optimizer import tree_leaves
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+
+    def draw(shape, scale):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    def flat(ts):
+        return torch.cat([t.flatten().float() for t in ts])
+
+    opt = AdamW(warmup=1)
+    hyper = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps, weight_decay=opt.weight_decay,
+                 clip_norm=opt.clip_norm)
+    rows = {}
+    for c in ADAMW_CASES:
+        if "leaf" in c:
+            params = [draw(c["n"], 0.02).to(torch.bfloat16)]
+        else:
+            params = list(tree_leaves(init_params(get_config("zamba2_1p2b"), seed=0,
+                                                  device="cuda")))
+        assert sum(p.numel() for p in params) == c["n"], c
+        grads = [torch.empty_like(p) for p in params]
+        quads = [(gr, draw(p.shape, 1e-5), draw(p.shape, 1e-5).square_(), p)
+                 for gr, p in zip(grads, params)]
+        plain = [(gr, m.clone(), v.clone(), p.clone()) for gr, m, v, p in quads]
+        for k in range(ADAMW_STEPS):
+            for gr in grads:
+                gr.copy_(draw(gr.shape, 1e-4))
+            step = torch.full((), ADAMW_STEP0 + k, dtype=torch.int32, device="cuda")
+            lr, stepf = opt.lr_at(step), step.to(torch.float32)
+            c1, c2 = 1 - opt.b1 ** stepf, 1 - opt.b2 ** stepf
+            p_old = flat(params)
+            gnorm = adamw.adamw_update(quads, lr, c1, c2, **hyper)
+            adamw.adamw_update_plain(plain, lr, c1, c2, gnorm=gnorm, **hyper)
+            want = math.sqrt(sum(float(torch.linalg.vector_norm(gr.double()) ** 2)
+                                 for gr in grads))
+            if not abs(float(gnorm) - want) <= 1e-6 * want:
+                raise AssertionError(f"adamw {c}: norm {float(gnorm)} vs f64 {want}")
+            for i, name in ((1, "m"), (2, "v"), (3, "p")):
+                if not all(torch.equal(a[i], b[i]) for a, b in zip(quads, plain)):
+                    raise AssertionError(f"adamw {c}: step {k + 1}: {name} differs from "
+                                         f"the plain version's")
+        dp = flat(params) - p_old
+        dp_plain = flat(q[3] for q in plain) - p_old
+        moved = float((dp != 0).float().mean())
+        if not moved > 0.5:
+            raise AssertionError(f"adamw {c}: the last step moved {moved:.3f} of p")
+        errs = {"dp": (float((dp - dp_plain).abs().max()), _rel_err(dp, dp_plain))}
+        del dp, dp_plain, p_old
+        for i, name in ((1, "m"), (2, "v")):
+            got, want_t = flat(q[i] for q in quads), flat(q[i] for q in plain)
+            errs[name] = (float((got - want_t).abs().max()), _rel_err(got, want_t))
+            del got, want_t
+        print(json.dumps({"adamw_steps": {**c, "steps": ADAMW_STEPS, "p_moved": moved,
+                                          "norm": float(gnorm)}}), flush=True)
+        flops, nbytes = 0, 0
+        for p in params:
+            f, b = cost(p.numel(), p.element_size())
+            flops, nbytes = flops + f, nbytes + b
+        torch.cuda.empty_cache()
+        lib_p, lib_g = [p.float() for p in params], [gr.float() for gr in grads]
+        lib_m, lib_v = [q[1].clone() for q in quads], [q[2].clone() for q in quads]
+        lib_steps = [stepf.clone() for _ in params]
+
+        def library():
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(lib_g)))
+            unscale = torch.clamp((norm + 1e-9) / opt.clip_norm, min=1.0)
+            torch._fused_adamw_(lib_p, lib_g, lib_m, lib_v, [], lib_steps, lr=lr,
+                                beta1=opt.b1, beta2=opt.b2, weight_decay=opt.weight_decay,
+                                eps=opt.eps, amsgrad=False, maximize=False,
+                                grad_scale=unscale, found_inf=None)
+        key = tuple(sorted(c.items()))
+        rows[("adamw", "bfloat16", key)] = _row(
+            torch, clock, "adamw", "bfloat16", c, errs, flops, nbytes,
+            lambda: adamw.adamw_update(quads, lr, c1, c2, **hyper),
+            lambda: adamw.adamw_update_plain(plain, lr, c1, c2, **hyper), library, 5,
+            lib_label="torch._fused_adamw_ (f32 p, g)")
+        del params, grads, quads, plain, lib_p, lib_g, lib_m, lib_v
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def train_launches(cfg, microbatches: int) -> dict:
     """Each kernel's launches in one train step, from the layer structure
     and the remat nesting.
@@ -1292,7 +1424,11 @@ def train_launches(cfg, microbatches: int) -> dict:
     twice under remat="full" (each block is checkpointed), and its backward
     once; no SSD kernel, no conv.  With `moe.dropless`, each MoE block (all
     but the `first_dense`) runs three grouped expert GEMMs a forward and
-    three backward calls.  No other layout runs them."""
+    three backward calls.  No other layout runs them.
+
+    Once a step, whatever the microbatches: AdamW's update launches once a
+    leaf of the params (`adamw`) over all their elements (`adamw_elems`),
+    `adamw_launches`."""
     full = cfg.remat == "full"
     if cfg.family == "ssm":
         from repro_torch.models.model import _xlstm_groups
@@ -1316,15 +1452,27 @@ def train_launches(cfg, microbatches: int) -> dict:
                   "flash_attention_bwd": groups}
         per_mb.update(causal_conv=2 * per_mb["ssd_scan"], causal_conv_bwd=2 * cfg.n_layers,
                       expert_mm=0, expert_mm_bwd=0)
-    return {name: microbatches * n for name, n in per_mb.items()}
+    return {**{name: microbatches * n for name, n in per_mb.items()}, **adamw_launches(cfg)}
+
+
+def adamw_launches(cfg, steps: int = 1) -> dict:
+    """AdamW's counts over `steps` train steps on the card: one update launch
+    a non-empty leaf of the params a step (`adamw`), and their elements
+    (`adamw_elems`); the params' shapes from the meta device."""
+    from repro_torch.models import init_params
+    from repro_torch.training.optimizer import tree_leaves
+    sizes = [t.numel() for t in tree_leaves(init_params(cfg, device="meta")) if t.numel()]
+    return {"adamw": steps * len(sizes), "adamw_elems": steps * sum(sizes)}
 
 
 # ------------------------------------------------------------ 6. train parity
-def train_parity(torch, cfg, tag: str = "train_parity", bf16: bool = True):
-    """One train step of the reduced cfg (f32 params and compute) from the
-    same seeded params on the card and on the CPU: loss, grad norm and
-    params within 1e-4; then (with bf16) the same step in bf16, loss and
-    grad norm within 2e-2 relative.  Printed under `tag`."""
+def train_parity(torch, cfg, tag: str = "train_parity", bf16: bool = True, steps: int = 1):
+    """`steps` train steps of the reduced cfg (f32 params and compute) on one
+    batch from the same seeded params on the card and on the CPU: the last
+    step's loss and grad norm, and the params, within 1e-4 (past the first
+    step AdamW starts from non-zero moments, so every term of its update
+    shows); then (with bf16) one step in bf16, loss and grad norm within
+    2e-2 relative.  Printed under `tag`."""
     from repro_torch.models import init_params
     from repro_torch.training import (AdamW, make_train_state, make_train_step,
                                       synthetic_batch)
@@ -1335,9 +1483,10 @@ def train_parity(torch, cfg, tag: str = "train_parity", bf16: bool = True):
     opt = AdamW(lr=1e-3, eps=1e-3, warmup=1, total_steps=4)
     out = {}
     for dev in ("cpu", "cuda"):
-        params = _to(init_params(cfg, seed=0, device="cpu"), dev)
-        state, m = make_train_step(cfg, opt)(make_train_state(params, opt),
-                                             synthetic_batch(cfg, 2, 64, device=dev))
+        state = make_train_state(_to(init_params(cfg, seed=0, device="cpu"), dev), opt)
+        batch, step = synthetic_batch(cfg, 2, 64, device=dev), make_train_step(cfg, opt)
+        for _ in range(steps):
+            state, m = step(state, batch)
         out[dev] = (state.params, {k: float(v) for k, v in m.items()})
     (pc, mc), (pg, mg) = out["cpu"], out["cuda"]
     worst = 0.0
@@ -1454,26 +1603,17 @@ def full_width_train(torch, fa, ssd):
     from repro_torch.configs import get_config
     from repro_torch.launch.train import main as train_main
 
-    from repro_torch.kernels import causal_conv as cc
-    from repro_torch.kernels import expert_mm as emm
-
-    argv = TRAIN_ARGV
-    counters = {"flash_attention": fa.flash_attention, "flash_attention_bwd": fa._launch_bwd,
-                "ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd._launch_bwd,
-                "causal_conv": cc.causal_conv_silu, "causal_conv_bwd": cc._launch_bwd,
-                "expert_mm": emm.expert_mm, "expert_mm_bwd": emm._launch_bwd}
-    for fn in counters.values():
-        fn.launches = 0
-    fa.flash_attention.mla_launches = fa._launch_bwd.mla_launches = 0
-    stats = train_main(argv)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    counters = _zeroed_counters(fa, None, ssd)
+    stats = train_main(TRAIN_ARGV)
+    launches = counters()
     print(json.dumps({"train": stats, "launches": launches}))
     cfg = get_config("zamba2_1p2b")
     expected = {k: 3 * n for k, n in train_launches(cfg, cfg.train_microbatches).items()}
+    expected.update(flash_decode=0, ssd_scan_final_state=0, flash_attention_mla=0,
+                    flash_attention_bwd_mla=0)
     print(f"launches {launches}, expected {expected} (3 steps)")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
-    _no_mla_launches(fa, launches, "train")
     losses = stats["losses"]
     if not (len(losses) == 3 and all(math.isfinite(x) for x in losses)
             and abs(losses[0] - math.log(cfg.vocab)) < 1.5):
@@ -1497,8 +1637,6 @@ def live_seam(torch, fa, fd, ssd):
     from types import SimpleNamespace
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import causal_conv as cc
-    from repro_torch.kernels import expert_mm as emm
     from repro_torch.launch.elastic_cluster import MAX_SEQ, plan_batch
     from repro_torch.launch.elastic_cluster import main as cluster_main
     from repro_torch.models import init_params
@@ -1516,18 +1654,11 @@ def live_seam(torch, fa, fd, ssd):
             "--serve-arch", "llama3-8b", "--batch", str(LIVE_BATCH), "--seq", str(LIVE_SEQ),
             "--target-steps", str(LIVE_TARGET_STEPS), "--ckpt-every", "6",
             "--speed", "inf", "--ckpt-dir", str(ckpt)]
-    counters = {"flash_attention": fa.flash_attention, "flash_decode": fd.flash_decode,
-                "ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd._launch_bwd,
-                "flash_attention_bwd": fa._launch_bwd, "causal_conv": cc.causal_conv_silu,
-                "causal_conv_bwd": cc._launch_bwd, "expert_mm": emm.expert_mm,
-                "expert_mm_bwd": emm._launch_bwd}
     jobs = {}
-    for fn in counters.values():
-        fn.launches = 0
-    fa.flash_attention.mla_launches = fa._launch_bwd.mla_launches = 0
+    counters = _zeroed_counters(fa, fd, ssd)
     stats = cluster_main(argv, serve_params=serve_params,
                          on_job=lambda job: jobs.__setitem__(job.jid, job))
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = counters()
 
     log = stats["cluster_log"]
     print(json.dumps({"live": {
@@ -1558,7 +1689,8 @@ def live_seam(torch, fa, fd, ssd):
     if not ({"event": "od_acquire", "jid": -1, "source": "SPAA", "nodes": 4} in log
             and shrunk and shrunk <= {e["jid"] for e in log if e["event"] == "expand"}):
         raise AssertionError(f"no SPAA acquire with a shrink and its repaying expand: {log}")
-    # each kernel but the dropless MoE's (no MoE runs here): launched in this
+    # each kernel but the dropless MoE's (no MoE runs here), the SSD
+    # forward's final state (no hybrid serves) and MLA's: launched in this
     # phase, the training kernels as many times as train_launches says for
     # the steps taken, serving 32 layers a prefill and 32 a decode step
     cfg = get_config("zamba2_1p2b").with_(n_layers=LIVE_TRAIN_LAYERS)
@@ -1568,13 +1700,14 @@ def live_seam(torch, fa, fd, ssd):
     per_step = train_launches(cfg, 1)
     expected = {name: n * steps for name, n in per_step.items()}
     expected["flash_attention"] += serve_cfg.n_layers * serves
-    expected["flash_decode"] = serve_cfg.n_layers * decode_steps
+    expected.update(flash_decode=serve_cfg.n_layers * decode_steps, ssd_scan_final_state=0,
+                    flash_attention_mla=0, flash_attention_bwd_mla=0)
+    idle = {"expert_mm", "expert_mm_bwd", "ssd_scan_final_state", "flash_attention_mla",
+            "flash_attention_bwd_mla"}
     print(f"launches {launches}, expected {expected} ({steps} train steps, "
           f"{serves} serve batches, {decode_steps} decode steps)")
-    if launches != expected or not all(n for k, n in launches.items()
-                                       if not k.startswith("expert_mm")):
+    if launches != expected or not all(n for k, n in launches.items() if k not in idle):
         raise AssertionError(f"kernel launches {launches} != {expected}")
-    _no_mla_launches(fa, launches, "live")
     # the served tokens are those of the same requests served again outside
     # the cluster, on an engine over the same params (a determinism check)
     engine = ServeEngine(serve_cfg, serve_params, max_seq=MAX_SEQ, device="cuda")
@@ -1685,7 +1818,8 @@ def full_width_hybrid_serve(torch, fa, fd, ssd):
                 "ssd_scan": cfg.n_layers, "ssd_scan_bwd": 0, "flash_attention_bwd": 0,
                 "ssd_scan_final_state": cfg.n_layers, "flash_attention_mla": 0,
                 "flash_attention_bwd_mla": 0, "causal_conv": 2 * cfg.n_layers,
-                "causal_conv_bwd": 0, "expert_mm": 0, "expert_mm_bwd": 0}
+                "causal_conv_bwd": 0, "expert_mm": 0, "expert_mm_bwd": 0, "adamw": 0,
+                "adamw_elems": 0}
     print(f"launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -1810,7 +1944,7 @@ def launchers_on_card(torch, fa, fd, ssd):
                 "ssd_scan_bwd": 0, "flash_attention_bwd": cfg.n_layers * QUICK_STEPS,
                 "ssd_scan_final_state": 0, "flash_attention_mla": 0,
                 "flash_attention_bwd_mla": 0, "causal_conv": 0, "causal_conv_bwd": 0,
-                "expert_mm": 0, "expert_mm_bwd": 0}
+                "expert_mm": 0, "expert_mm_bwd": 0, **adamw_launches(cfg, QUICK_STEPS)}
     print(f"launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -2091,7 +2225,8 @@ def full_width_moe_serve(torch, fa, fd, ssd):
                 "ssd_scan": 0, "ssd_scan_bwd": 0, "flash_attention_bwd": 0,
                 "ssd_scan_final_state": 0, "flash_attention_mla": 0,
                 "flash_attention_bwd_mla": 0, "causal_conv": 0, "causal_conv_bwd": 0,
-                "expert_mm": 0, "expert_mm_bwd": 0}
+                "expert_mm": 0, "expert_mm_bwd": 0, "adamw": 0,
+                "adamw_elems": 0}
     print(f"launches {launches}, expected {expected}")
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
@@ -2291,11 +2426,12 @@ def campaigns_on_card(torch, fa, fd, ssd) -> tuple:
 # -------------------------------------------------------- 17. xLSTM parity
 def _conv_launches_only(launches: dict, what: str, **counts) -> None:
     """xLSTM's one hand-written kernel is the mLSTM's causal conv (the mLSTM
-    scan and the sLSTM loop are plain torch, as the reference's are jnp):
-    fail if another launched, if the conv's forward did not, or if the
-    conv's counts differ from `counts` where given."""
+    scan and the sLSTM loop are plain torch, as the reference's are jnp),
+    and a train step's AdamW: fail if another launched, if the conv's
+    forward did not, or if a count differs from `counts` where given."""
     print(f"launches {launches}, expected the conv's alone {counts or ''}")
-    other = {k: n for k, n in launches.items() if n and not k.startswith("causal_conv")}
+    other = {k: n for k, n in launches.items()
+             if n and not k.startswith("causal_conv") and k not in counts}
     if other or not launches["causal_conv"] or any(launches[k] != n for k, n in counts.items()):
         raise AssertionError(f"{what}: kernel launches {launches}: not the conv's alone "
                              f"{counts or ''}")
@@ -2382,7 +2518,7 @@ def xlstm_parity(torch, fa, fd, ssd):
     print(json.dumps({"mlstm_scan_full_width": row}))
     if not rel <= 1e-4:
         raise AssertionError(f"mlstm_scan differs from naive_mlstm by {rel} > 1e-4 relative")
-    _conv_launches_only(counters(), "xlstm parity")
+    _conv_launches_only(counters(), "xlstm parity", **adamw_launches(cfg, 2))  # f32, bf16 step
 
 
 # --------------------------------------------------------- 18. xLSTM serve
@@ -2523,7 +2659,7 @@ def full_width_xlstm_train(torch, fa, fd, ssd):
     cfg = get_config("xlstm_350m")
     _conv_launches_only(launches, "xlstm train", **{
         k: XLSTM_TRAIN_STEPS * n for k, n in train_launches(cfg, cfg.train_microbatches).items()
-        if k.startswith("causal_conv")})
+        if k.startswith(("causal_conv", "adamw"))})
     losses = stats["losses"]
     if not (len(losses) == XLSTM_TRAIN_STEPS and all(math.isfinite(x) for x in losses)
             and abs(losses[0] - math.log(cfg.vocab)) < 1.5):
@@ -2872,6 +3008,7 @@ def vlm_audio_parity(torch, fa, fd, ssd):
 
     counters = _zeroed_counters(fa, fd, ssd)
     n_fa = n_fd = n_bwd = 0
+    opt_counts = {"adamw": 0, "adamw_elems": 0}
     for arch in ("internvl2_1b", "seamless_m4t_medium"):
         cfg = reduced(arch)
         L = cfg.n_layers
@@ -2903,6 +3040,8 @@ def vlm_audio_parity(torch, fa, fd, ssd):
         train_parity(torch, cfg, tag=f"{cfg.name}_train_parity")
         n_fa += 2 * L                     # the f32 and the bf16 step, remat "none"
         n_bwd += 2 * L
+        for k, n in adamw_launches(cfg, 2).items():
+            opt_counts[k] += n
         bf = cfg.with_(param_dtype="bfloat16", compute_dtype="bfloat16")
         bparams = init_params(bf, seed=0, device="cpu")
         with torch.no_grad():
@@ -2918,7 +3057,7 @@ def vlm_audio_parity(torch, fa, fd, ssd):
             raise AssertionError(f"bf16 reduced {cfg.name} logits differ cuda vs cpu by "
                                  f"{rel} > 2e-2 of the largest")
     _expect_launches(counters(), "vlm / audio parity", flash_attention=n_fa,
-                     flash_decode=n_fd, flash_attention_bwd=n_bwd)
+                     flash_decode=n_fd, flash_attention_bwd=n_bwd, **opt_counts)
 
 
 # ----------------------------------------------------------- 23. VLM serve
@@ -3314,7 +3453,8 @@ def mla_train_parity(torch, fa, fd, ssd):
     n_fa, n_bwd = step["flash_attention"] + len(cases), step["flash_attention_bwd"] + len(cases)
     _expect_launches(counters(), "mla train parity", flash_attention=n_fa,
                      flash_attention_mla=n_fa, flash_attention_bwd=n_bwd,
-                     flash_attention_bwd_mla=n_bwd)
+                     flash_attention_bwd_mla=n_bwd, adamw=step["adamw"],
+                     adamw_elems=step["adamw_elems"])
 
 
 # ---------------------------------------------------------- 27. MLA train
@@ -3347,7 +3487,8 @@ def full_width_mla_train(torch, fa, fd, ssd):
                      flash_attention=MLA_TRAIN_STEPS * step["flash_attention"],
                      flash_attention_mla=MLA_TRAIN_STEPS * step["flash_attention"],
                      flash_attention_bwd=MLA_TRAIN_STEPS * step["flash_attention_bwd"],
-                     flash_attention_bwd_mla=MLA_TRAIN_STEPS * step["flash_attention_bwd"])
+                     flash_attention_bwd_mla=MLA_TRAIN_STEPS * step["flash_attention_bwd"],
+                     **adamw_launches(cfg, MLA_TRAIN_STEPS))
     losses = stats["losses"]
     if not (len(losses) == MLA_TRAIN_STEPS and all(math.isfinite(x) for x in losses)
             and abs(losses[0] - math.log(cfg.vocab)) < 1.5):
@@ -3424,8 +3565,9 @@ def mesh_train(torch, fa, fd, ssd, one_launches: dict, one_stats: dict) -> dict:
     reached through `local_map` (a kernel's wrapper refuses a DTensor).
     The rank's counts are zeroed just before and read just after, in the
     rank; this process launches nothing.  Fails unless the launches equal
-    phase 7's (so every attention and SSD call launched its kernel: on the
-    card no plain version is reachable) and the losses are phase 7's within
+    phase 7's (so every attention and SSD call, and AdamW once a leaf,
+    launched its kernel on the rank's shards: on the card no plain version
+    is reachable) and the losses are phase 7's within
     MESH_TRAIN_REL.  Prints both paths' step seconds and peak memory, paired:
     DTensor's host overhead is recorded, not claimed.  Returns the launches."""
     import gc
@@ -3455,8 +3597,7 @@ def mesh_train(torch, fa, fd, ssd, one_launches: dict, one_stats: dict) -> dict:
         flush=True)
     if stats["mesh"] != {"data": 1, "model": 1}:
         raise AssertionError(f"mesh train ran on {stats['mesh']}, not 1 x 1")
-    want = dict(one_launches)
-    _expect_launches(launches, "mesh train", **want)
+    _expect_launches(launches, "mesh train", **one_launches)
     rel = max(abs(a - b) / abs(b) for a, b in zip(stats["losses"], one_stats["losses"]))
     print(f"losses {stats['losses']} vs phase 7's {one_stats['losses']}: rel {rel:.3e}")
     if len(stats["losses"]) != len(one_stats["losses"]) or not rel <= MESH_TRAIN_REL:
@@ -3535,13 +3676,15 @@ def olmoe_published_train(torch, fa, fd, ssd):
     tokens from seeded params, counts zeroed just before and read just
     after: per step, attention forward 2 and backward 1 a layer, the
     grouped GEMMs 6 forward (3, recomputed once) and 3 backward calls a
-    layer (48 / 24), nothing else.  Losses finite, the first near ln(vocab).
+    layer (48 / 24), AdamW once a leaf (15), nothing else.  Losses finite, the
+    first near ln(vocab).
     Then one more step under `torch.profiler` reduced as the benchmark
     reduces its traces (`perfbench.trace`): every trace name of
-    `perfbench/kernels/expert_mm.json` must be there, or
-    `expert_mm_roofline.train` would read nothing.  Prints step seconds,
-    tokens/s, peak memory and the grouped GEMMs' device time with its
-    bound.  Returns the timed steps' launches."""
+    `perfbench/kernels/expert_mm.json` and of `perfbench/kernels/adamw.json`
+    must be there, or `expert_mm_roofline.train` or `adamw_roofline.train`
+    would read nothing.  Prints step seconds, tokens/s, peak memory and the
+    grouped GEMMs' and AdamW's device time with its bound.  Returns the timed
+    steps' launches."""
     import gc
 
     from perfbench import readers
@@ -3605,6 +3748,19 @@ def olmoe_published_train(torch, fa, fd, ssd):
         raise AssertionError(f"a traced olmoe step ran none of {missing} "
                              "(perfbench/kernels/expert_mm.json): the grouped GEMMs go by other "
                              "names, and expert_mm_roofline.train would read nothing")
+    from perfbench.kernels.adamw import cost as adamw_cost
+    names = readers.kernel_names("adamw")
+    adamw_s = sum(kernel_s.get(n, 0.0) for n in names)
+    adamw_bound_s = adamw_cost(per_step["adamw_elems"], 2)[1] / HBM_BYTES_PER_S
+    print(json.dumps({"olmoe_adamw": {
+        "device_ms": 1e3 * adamw_s, "bound_ms": 1e3 * adamw_bound_s,
+        "roofline_pct": 100.0 * adamw_bound_s / adamw_s if adamw_s else None,
+        "by_name_ms": {n: 1e3 * kernel_s.get(n, 0.0) for n in sorted(names)}}}), flush=True)
+    missing = sorted(n for n in names if n not in kernel_s)
+    if missing:
+        raise AssertionError(f"a traced olmoe step ran none of {missing} "
+                             "(perfbench/kernels/adamw.json): adamw_roofline.train would read "
+                             "nothing")
     del state, step, batch, m
     gc.collect()
     torch.cuda.empty_cache()
@@ -3654,6 +3810,7 @@ def main(argv=None) -> int:
     rows.update(training_kernel_cases(torch, F, fa, ssd, clock))
     rows.update(conv_kernel_cases(torch, clock))
     rows.update(expert_mm_kernel_cases(torch, clock))
+    rows.update(adamw_kernel_cases(torch, clock))
     del clock
     kernel_breakdown(torch, fd, ssd)
     if args.kernels_only:
@@ -3667,7 +3824,7 @@ def main(argv=None) -> int:
     serve_launches = full_width_serve(torch, fa, fd)
 
     phase("6. train and serve parity (reduced zamba2, f32 and bf16, cuda vs cpu)")
-    train_parity(torch, reduced("zamba2_1p2b"))
+    train_parity(torch, reduced("zamba2_1p2b"), steps=3)
     hybrid_serve_parity(torch)
 
     phase("7. full-width zamba2-1.2b train (bf16, 38 layers, 3 steps)")
@@ -3780,6 +3937,7 @@ def main(argv=None) -> int:
         "causal_conv_bwd": ("bfloat16", CONV_SHAPES[0]),
         "expert_mm": ("bfloat16", EXPERT_MM_SHAPES[0]),
         "expert_mm_bwd": ("bfloat16", EXPERT_MM_SHAPES[0]),
+        "adamw": ("bfloat16", ADAMW_CASES[0]),
     }
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -3803,6 +3961,8 @@ def main(argv=None) -> int:
                       "none: the reference has no dropless MoE"),
         "expert_mm_bwd": ("src/repro_torch/kernels/expert_mm.py: torch._grouped_mm",
                           "none: the reference has no dropless MoE"),
+        "adamw": (csrc + "adamw.cu",
+                  "none: the reference's AdamW is jnp, src/repro/training/optimizer.py"),
     }
     kernels = []
     for name, (dtn, c) in main_shape.items():

@@ -7,13 +7,15 @@ and `reset_launch_counts` sets them to 0, in the calling process.
 
 
 def _counters():
+    from . import adamw
     from . import causal_conv as cc
     from . import expert_mm as emm
     from . import flash_attention as fa
     from . import flash_decode as fd
     from . import ssd_scan as ssd
     # name -> (wrapper, attribute): the final-state SSD forward and the
-    # Dv != D attention launches are counted among the launches too
+    # Dv != D attention launches are counted among the launches too, and
+    # AdamW's updated elements beside its update launches
     return {"flash_attention": (fa.flash_attention, "launches"),
             "flash_decode": (fd.flash_decode, "launches"),
             "ssd_scan": (ssd.ssd_scan, "launches"),
@@ -25,7 +27,9 @@ def _counters():
             "causal_conv": (cc.causal_conv_silu, "launches"),
             "causal_conv_bwd": (cc._launch_bwd, "launches"),
             "expert_mm": (emm.expert_mm, "launches"),
-            "expert_mm_bwd": (emm._launch_bwd, "launches")}
+            "expert_mm_bwd": (emm._launch_bwd, "launches"),
+            "adamw": (adamw.adamw_update, "launches"),
+            "adamw_elems": (adamw.adamw_update, "elems")}
 
 
 def launch_counts() -> dict:

@@ -33,6 +33,10 @@ The routing rule, decided by shape before any launch:
     grouped products) raises `ValueError` before any launch: no call on the
     card gives way to a plain version.
 
+The optimizer's AdamW (`kernels/adamw.py`, called by `training/optimizer.py`
+rather than through this module) keeps the same rule, but for a DTensor leaf,
+which takes its plain version on any device.
+
 Everything else (non-causal and cross attention, Sq != Skv, the one-token
 SSD recurrence `ssd_step` of hybrid decode, the conv of one decode token
 from its carried tail, and the xLSTM's chunked mLSTM

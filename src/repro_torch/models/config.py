@@ -172,10 +172,9 @@ class ModelConfig:
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 # The port's bound on a float32 temporary of one param leaf, in elements: a
-# larger leaf is drawn at init (`layers._init`) and updated by AdamW
-# (`training.optimizer`) a block of leading-axis (layer) slices at a time,
-# so a full-width MoE model's stacked experts need one layer's f32 copies
-# at a time, not the whole stack's.
+# larger leaf is drawn at init (`layers._init`) a block of leading-axis
+# (layer) slices at a time, so a full-width MoE model's stacked experts need
+# one layer's f32 copies at a time, not the whole stack's.
 SLICE_ELEMS = 1 << 27
 
 

@@ -32,7 +32,7 @@ The spans (* device time, ** device time in a backward pass):
   runtime.step (jid, step) > runtime.batch [host_syncs],
                              runtime.sync [host_syncs]
   training.step* > training.forward*, training.backward*,
-                   training.optimizer* [host_syncs]
+                   training.optimizer*
   models.mamba2**, models.block**, models.moe.{route,dispatch,experts,combine}
   (* on the dropless path alone)
   serving.batch (rids) > serving.prefill [host_syncs],

@@ -18,6 +18,7 @@ scale-relative (error over the largest magnitude of the reference), as
 magnitude.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -779,7 +780,7 @@ def test_xlstm_reduced_serving_on_the_card(cuda):
 def test_xlstm_train_step_on_the_card_equals_the_cpu(cuda):
     """One train step of reduced xLSTM in f32: loss, grad norm and params
     within 1e-4 of the CPU's (AdamW eps 1e-3, as
-    tests/test_torch_training.py explains); no kernel launches."""
+    tests/test_torch_training.py explains); no kernel launches but AdamW's."""
     from repro_torch.models import init_params
     from repro_torch.training import (AdamW, make_train_state, make_train_step,
                                       synthetic_batch)
@@ -1007,8 +1008,9 @@ def test_mesh_train_on_one_nccl_rank_equals_one_device(cuda):
     `--mesh 1x1` on a rank process that `runtime/ranks.py` spawns on the
     card (NCCL) gives the in-process run's losses within 1e-5 relative (f32,
     the same seed and batches) and launches the same kernels as often,
-    counted in the rank; the kernels refuse DTensors, so the run also shows
-    that none reached them."""
+    counted in the rank, AdamW's on the rank's shards included (its norm
+    adds each group of split leaves across the mesh); the kernels refuse
+    DTensors, so the run also shows that none reached them."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train
     from repro_torch.runtime.ranks import RankGroup
@@ -1025,6 +1027,7 @@ def test_mesh_train_on_one_nccl_rank_equals_one_device(cuda):
     assert mesh["mesh"] == {"data": 1, "model": 1} and mesh["device"].startswith("cuda")
     assert launches == one_launches
     assert launches["ssd_scan"] > 0 and launches["flash_attention_bwd"] > 0
+    assert one_launches["adamw"] > 0
     np.testing.assert_allclose(mesh["losses"], one["losses"], rtol=1e-5, atol=0)
 
 
@@ -1201,3 +1204,174 @@ def test_a_traced_dropless_layer_runs_every_name_the_roofline_reads(cuda):
     assert len(names) == 4
     assert sorted(n[:60] for n in names if n not in kernel_s) == []
     assert all(kernel_s[n] > 0 for n in names)
+
+
+# --------------------------------------------------------------------- AdamW
+def _adamw_tree(device, big=0):
+    """(params, grads): bf16 leaves with bf16 and with f32 gradients (as
+    microbatch accumulation hands them over), f32 leaves (a router, an SSM's
+    A), sizes that leave a tail of the 8-element vectors, a contiguous leaf
+    that is not 16-byte aligned, and with big > 0 one bf16 leaf of `big`
+    elements."""
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    def rnd(n, dtype, scale=1.0):
+        return (torch.randn(n, generator=gen, device=device) * scale).to(dtype)
+    bf, f32 = torch.bfloat16, torch.float32
+    odd = torch.empty(4101, dtype=bf, device=device)[1:]      # 2 bytes past the start
+    odd.copy_(rnd(4100, bf))
+    params = {"w": rnd(64 * 96, bf).view(64, 96), "w_f32g": rnd(8 * 1003, bf).view(8, 1003),
+              "router": rnd(2048 * 64, f32, 0.02).view(2048, 64), "a_log": rnd(13, f32),
+              "odd": odd}
+    grads = {"w": rnd(64 * 96, bf, 1e-2).view(64, 96),
+             "w_f32g": rnd(8 * 1003, f32, 1e-2).view(8, 1003),
+             "router": rnd(2048 * 64, f32, 1e-2).view(2048, 64), "a_log": rnd(13, f32, 1e-2),
+             "odd": rnd(4100, bf, 1e-2)}
+    if big:
+        params["big"], grads["big"] = rnd(big, bf, 0.02), rnd(big, bf, 1e-4)
+    return params, grads
+
+
+def _adamw_quads(grads, state, params):
+    from repro_torch.training.optimizer import tree_map
+    quads = []
+    tree_map(lambda g, m, v, p: quads.append((g, m, v, p)), grads, state.m, state.v, params)
+    return quads
+
+
+@pytest.mark.parametrize("clip", [1.0, 1e30], ids=["clipped", "unclipped"])
+@pytest.mark.parametrize("big", [0, 600_000_011], ids=["small", "over_2GiB_of_state"])
+def test_adamw_kernels_against_the_plain_version(cuda, clip, big):
+    """Three steps of the kernels against the plain version on the card,
+    from the same tree: the kernels' global norm is the f64 sum's within
+    1e-6, and given it, every param, m and v equal the plain version's bit
+    for bit: the same IEEE f32
+    operations in the same order, p rounded to nearest even.  `big` adds a
+    leaf whose f32 moments are 2.4 GB each (64-bit offsets)."""
+    from repro_torch.kernels import adamw
+    from repro_torch.training import AdamW
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+
+    opt = AdamW(lr=1e-3, warmup=1, total_steps=10, clip_norm=clip)
+    params, grads = _adamw_tree(cuda, big)
+    plain_p = tree_map(torch.clone, params)
+    state, plain_s = opt.init(params), opt.init(plain_p)
+    plain = adamw.adamw_update_plain
+    for _ in range(3):
+        n0 = adamw.adamw_update.launches
+        params, state, gnorm = opt.update(grads, state, params)
+        assert adamw.adamw_update.launches == n0 + len(params)
+        want = math.sqrt(sum(float(torch.sum(g.double() ** 2)) for g in tree_leaves(grads)))
+        assert abs(float(gnorm) - want) <= 1e-6 * want
+        step = plain_s.step + 1
+        lr, stepf = opt.lr_at(step), step.to(torch.float32)
+        plain(_adamw_quads(grads, plain_s, plain_p), lr, 1 - opt.b1 ** stepf,
+              1 - opt.b2 ** stepf, b1=opt.b1, b2=opt.b2, eps=opt.eps,
+              weight_decay=opt.weight_decay, clip_norm=opt.clip_norm, gnorm=gnorm)
+        plain_s = plain_s._replace(step=step)
+        for a, b in ((params, plain_p), (state.m, plain_s.m), (state.v, plain_s.v)):
+            for k in a:
+                assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+    assert (float(gnorm) > clip) == (clip == 1.0)
+
+
+def test_adamw_norm_and_a_second_run_repeat_bit_for_bit(cuda):
+    """The clip norm sums fixed per-CTA partials in a fixed order: the norm
+    of a tree, and two updates from the same state, repeat to the bit."""
+    from repro_torch.kernels import adamw
+    from repro_torch.training import AdamW
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+
+    opt = AdamW(lr=1e-3, warmup=1, total_steps=10)
+    params, grads = _adamw_tree(cuda, 50_000_003)
+    norms = [adamw._launch_norm(list(tree_leaves(grads)), opt.clip_norm) for _ in range(2)]
+    assert torch.equal(*norms)
+    outs = []
+    for _ in range(2):
+        p = tree_map(torch.clone, params)
+        p, s, gnorm = opt.update(grads, opt.init(p), p)
+        outs.append([gnorm, *tree_leaves(p), *tree_leaves(s.m), *tree_leaves(s.v)])
+    for a, b in zip(*outs, strict=True):
+        assert torch.equal(a, b)
+
+
+def test_adamw_counters_match_the_tree(cuda):
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.training import AdamW
+    from repro_torch.training.optimizer import tree_leaves
+
+    opt = AdamW()
+    params, grads = _adamw_tree(cuda)
+    params["empty"], grads["empty"] = (torch.zeros((0, 8), device=cuda) for _ in range(2))
+    reset_launch_counts()
+    opt.update(grads, opt.init(params), params)
+    got = launch_counts()
+    sizes = [t.numel() for t in tree_leaves(params) if t.numel()]
+    assert (got["adamw"], got["adamw_elems"]) == (len(sizes), sum(sizes))
+    assert all(n == 0 for k, n in got.items() if not k.startswith("adamw"))
+
+
+def test_adamw_records_no_host_sync(cuda):
+    """Under CUDA's sync debug mode set to raise, a step of the optimizer
+    (the schedule, the bias corrections, the norm, the updates) waits for
+    nothing on the card."""
+    from repro_torch.training import AdamW
+
+    opt = AdamW()
+    params, grads = _adamw_tree(cuda)
+    state = opt.init(params)
+    params, state, _ = opt.update(grads, state, params)       # built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, state, gnorm = opt.update(grads, state, params)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(gnorm)
+
+
+@pytest.mark.parametrize("p_dtype,g_dtype", [(torch.float16, torch.float16),
+                                             (torch.bfloat16, torch.float16),
+                                             (torch.float64, torch.float32)])
+def test_adamw_unsupported_dtype_on_the_card_raises_before_any_launch(cuda, p_dtype, g_dtype):
+    from repro_torch.kernels import launch_counts
+    from repro_torch.training import AdamW
+
+    opt = AdamW()
+    params = {"ok": torch.zeros(16, device=cuda), "bad": torch.zeros(16, dtype=p_dtype,
+                                                                    device=cuda)}
+    grads = {"ok": torch.ones(16, device=cuda), "bad": torch.ones(16, dtype=g_dtype,
+                                                                  device=cuda)}
+    n0 = launch_counts()
+    with pytest.raises(ValueError, match="unsupported leaf 1"):
+        opt.update(grads, opt.init(params), params)
+    torch.cuda.synchronize()
+    assert launch_counts() == n0
+
+
+def test_a_traced_train_step_runs_every_adamw_name_the_roofline_reads(cuda):
+    """`adamw_roofline.train` finds AdamW's device time by the trace names in
+    perfbench/kernels/adamw.json: a train step of reduced zamba2 in bf16
+    (bf16 and f32 leaves), traced and reduced as the benchmark reduces its
+    traces, must run every one of them."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from perfbench import readers
+    from perfbench.trace import Stretch
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.models import init_params
+    from repro_torch.training import (AdamW, make_train_state, make_train_step,
+                                      synthetic_batch)
+
+    cfg = reduced("zamba2_1p2b").with_(param_dtype="bfloat16", compute_dtype="bfloat16")
+    opt = AdamW()
+    state = make_train_state(init_params(cfg, seed=0, device=cuda), opt)
+    step = make_train_step(cfg, opt)
+    batch = synthetic_batch(cfg, 2, 64, device=cuda)
+    state, _ = step(state, batch)
+    with Stretch(cuda) as st:
+        state, _ = step(state, batch)
+    kernel_s = st.reduce()["kernel_s"]
+    names = readers.kernel_names("adamw")
+    assert len(names) == 3 and all(kernel_s.get(n, 0.0) > 0 for n in names)

@@ -47,6 +47,7 @@ from repro_torch.models import (decode_step, forward, from_jax_params,  # noqa: 
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
 from repro_torch.training import (AdamW, make_train_state, make_train_step,  # noqa: E402
                                   synthetic_batch)
+from repro_torch.training.optimizer import tree_leaves  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -339,15 +340,17 @@ def test_train_step_kernel_calls_match_chip_smokes_count(monkeypatch, remat):
     monkeypatch.setattr(fa, "flash_attention_plain",
                         lambda *a, **k: calls.append(1) or orig(*a, **k))
     opt = AdamW()
+    params = init_params(cfg, seed=0, device="cpu")
+    leaves = list(tree_leaves(params))
     make_train_step(cfg, opt, microbatches=2)(
-        make_train_state(init_params(cfg, seed=0, device="cpu"), opt),
-        synthetic_batch(cfg, 2, 32, device="cpu"))
+        make_train_state(params, opt), synthetic_batch(cfg, 2, 32, device="cpu"))
     want = _chip_smoke().train_launches(cfg, microbatches=2)
     assert len(calls) == want["flash_attention"]
     assert want == {"flash_attention": 2 * cfg.n_layers * (2 if remat == "full" else 1),
                     "flash_attention_bwd": 2 * cfg.n_layers, "ssd_scan": 0,
                     "ssd_scan_bwd": 0, "causal_conv": 0, "causal_conv_bwd": 0,
-                    "expert_mm": 0, "expert_mm_bwd": 0}
+                    "expert_mm": 0, "expert_mm_bwd": 0,
+                    "adamw": len(leaves), "adamw_elems": sum(t.numel() for t in leaves)}
 
 
 def test_serve_and_train_clis_run_olmoe_on_cpu():

@@ -175,13 +175,12 @@ def test_recomputation_counts_of_nested_checkpoints(train_trace):
 
 
 def test_six_host_syncs_a_step(train_trace):
-    # the six values read back, the batch's two copies to the device and the
-    # optimizer's two scalars made on it
+    # the six values read back and the batch's two copies to the device; the
+    # optimizer makes its scalars on the device and waits for nothing
     spans, _ = train_trace
     for k in (1, 2):
         syncs = {s["name"]: s["counts"] for s in spans if s["step"] == k and s["counts"]}
         assert syncs == {"runtime.batch": {"host_syncs": 2},
-                         "training.optimizer": {"host_syncs": 2},
                          "runtime.sync": {"host_syncs": 6}}
 
 

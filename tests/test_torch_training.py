@@ -394,7 +394,7 @@ def test_adamw_updates_a_long_leaf_a_block_of_rows_at_a_time(monkeypatch, shape,
     over 20 alone, then its own slices), not one row at a time: a 151,680-
     or 256,256-row embedding in two blocks, not in one update a row.  Bit
     for bit the whole-leaf update."""
-    from repro_torch.training import optimizer
+    from repro_torch.kernels import adamw
     g = torch.Generator().manual_seed(1)
     params = {"w": torch.randn(shape, generator=g)}
     grads = {"w": torch.randn(shape, generator=g)}
@@ -407,7 +407,7 @@ def test_adamw_updates_a_long_leaf_a_block_of_rows_at_a_time(monkeypatch, shape,
         return sqrt(x)
     monkeypatch.setattr(torch, "sqrt", counted)
     for limit in (1 << 30, 20):
-        monkeypatch.setattr(optimizer, "UPDATE_SLICE_ELEMS", limit)
+        monkeypatch.setattr(adamw, "UPDATE_SLICE_ELEMS", limit)
         p = {k: v.clone() for k, v in params.items()}
         state = opt.init(p)
         calls.append(0)
@@ -421,7 +421,7 @@ def test_adamw_updates_a_large_leaf_slice_by_slice_bit_for_bit(monkeypatch):
     """A leaf above UPDATE_SLICE_ELEMS is updated one axis-0 slice at a time
     (the f32 temporaries stay one layer's size); the params and moments are
     bit for bit those of the whole-leaf update."""
-    from repro_torch.training import optimizer
+    from repro_torch.kernels import adamw
     g = torch.Generator().manual_seed(0)
     params = {"w": torch.randn(4, 30, 20, generator=g).bfloat16(),
               "b": torch.randn(50, generator=g)}
@@ -429,7 +429,7 @@ def test_adamw_updates_a_large_leaf_slice_by_slice_bit_for_bit(monkeypatch):
     opt = AdamW(lr=1e-3, warmup=1, total_steps=4)
     out = []
     for limit in (1 << 30, 1000):
-        monkeypatch.setattr(optimizer, "UPDATE_SLICE_ELEMS", limit)
+        monkeypatch.setattr(adamw, "UPDATE_SLICE_ELEMS", limit)
         p = {k: v.clone() for k, v in params.items()}
         state = opt.init(p)
         for _ in range(2):
